@@ -1,0 +1,473 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``ray_tpu_torch``) on one NVIDIA H100.
+
+    python3 chip_smoke.py
+
+Run from the root of a checkout, on a machine with one CUDA card and nvcc.
+It builds the port's CUDA kernels from ``ray_tpu_torch/csrc``, holds each
+kernel against its plain PyTorch version on the card at the serving path's
+shapes, runs the full-width Llama-2-7B forward through the flash kernel,
+and then drives the port's main path: an ``InferenceEngine`` serving
+Llama-2-7B (random weights from a seed) through flash-attention prefill and
+paged-attention decode. Every phase prints one JSON object; any failure or
+missed tolerance raises (non-zero exit). The last two lines are the
+per-kernel summary and the result line read by automation:
+
+    {"kernels": [...]}
+    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}
+
+Without a CUDA card, or outside a checkout of the repository, it exits
+non-zero and prints no result.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import subprocess
+import sys
+import time
+
+import torch
+
+PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
+PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bandwidth
+# A kernel's bf16 output against its plain version's, elementwise:
+# |kernel - plain| <= ATOL + RTOL * |plain|. Both round the output to bf16
+# (relative step 2**-8, so one step at |out| in [2, 4) is 0.0156) and the
+# plain version also rounds the normalised probabilities to bf16 before the
+# PV product, while the kernels keep them in fp32: about one bf16 step of
+# the output.
+ATOL, RTOL = 1e-2, 1e-2
+TOL_RULE = f"|kernel - plain| <= {ATOL} + {RTOL} * |plain| elementwise"
+# Full-width forward, flash vs plain attention, both bf16 on the card: the
+# two attentions differ by bf16 roundings that 32 layers then carry along.
+# Logits are O(1) (unit-RMS final activations against 1/sqrt(d) weights).
+# Beside the absolute bounds, the flash logits may stray from an fp32 run of
+# the same model no further than FWD_NOISE times the plain bf16 logits do:
+# the kernel adds no more error than bf16 rounding already does. Argmax
+# agreement is reported, not held: random weights leave near-ties among
+# 32000 logits that any bf16 rounding flips.
+FWD_MAX_ABS, FWD_MEAN_ABS, FWD_NOISE = 0.25, 0.03, 1.2
+# First token of a request against forward's argmax at length-1: the two
+# run the same bf16 model at different padded lengths, so GEMM tiling may
+# differ; a mismatch is accepted only where the top two logits of forward
+# lie within this of each other.
+TOP2_GAP = 0.05
+
+
+def log(phase: str, **fields) -> None:
+    print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean device time of ``fn`` over ``iters`` launches, by CUDA events."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def device_profile(fn, steps: int) -> dict:
+    """Wall time, device (kernel) time and the device's idle share per call
+    of ``fn`` under torch.profiler, with the kernels that took the most
+    device time. The profiler's own cost inflates the wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    by_name: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / steps
+    busy = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return {"wall_ms": wall_ms, "device_ms": busy if busy else "not measured",
+            "idle_share": 1 - busy / wall_ms if busy else "not measured",
+            "top_kernels_ms": [[name[:80], ms] for name, ms in top]}
+
+
+def bound(flops: float, nbytes: float):
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def max_err(out: torch.Tensor, ref: torch.Tensor, what: str) -> float:
+    out, ref = out.float(), ref.float()
+    if not torch.isfinite(out).all():
+        raise AssertionError(f"{what}: non-finite output")
+    diff = (out - ref).abs()
+    excess = (diff - (ATOL + RTOL * ref.abs())).max().item()
+    err = diff.max().item()
+    if excess > 0:
+        raise AssertionError(f"{what}: max abs err {err} beyond atol {ATOL} + rtol {RTOL}")
+    return err
+
+
+# -- phases --------------------------------------------------------------
+
+
+def phase_card() -> str:
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    log("card", nvidia_smi=smi, torch_name=torch.cuda.get_device_name(0),
+        count=torch.cuda.device_count(), torch=torch.__version__, cuda=torch.version.cuda,
+        matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
+        cudnn_allow_tf32=torch.backends.cudnn.allow_tf32)
+    return smi
+
+
+def phase_build() -> None:
+    from ray_tpu_torch import _build
+
+    t0 = time.perf_counter()
+    logs = _build.build_all()
+    secs = time.perf_counter() - t0
+    for name, text in logs.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line or "error" in line:
+                print(f"# nvcc {name}: {line.strip()}")
+    log("build", seconds=secs, sources=sorted(logs))
+
+
+def check_flash(name, b, s, h, kv, d, causal, gen):
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    from ray_tpu_torch.kernels.flash_attention import (
+        flash_attention,
+        flash_attention_reference,
+    )
+
+    dev = "cuda"
+    q = torch.randn((b, s, h, d), generator=gen, device=dev).to(torch.bfloat16)
+    k = torch.randn((b, s, kv, d), generator=gen, device=dev).to(torch.bfloat16)
+    v = torch.randn((b, s, kv, d), generator=gen, device=dev).to(torch.bfloat16)
+    out, lse = flash_attention(q, k, v, causal=causal)
+    ref, ref_lse = flash_attention_reference(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    err = max_err(out, ref, f"flash {name}")
+    lse_err = (lse - ref_lse).abs().max().item()
+    if lse_err > 1e-3:
+        raise AssertionError(f"flash {name}: lse err {lse_err} > 1e-3 (fp32 statistics)")
+    ms = cuda_ms(lambda: flash_attention(q, k, v, causal=causal))
+    plain_ms = cuda_ms(lambda: flash_attention_reference(q, k, v, causal=causal), iters=5)
+    # the library call takes BHSD with repeated kv heads, made outside the timing
+    qt = q.transpose(1, 2)
+    kt, vt = (x.repeat_interleave(h // kv, dim=2).transpose(1, 2) for x in (k, v))
+    lib_ms = cuda_ms(lambda: sdpa(qt, kt, vt, is_causal=causal))
+    pairs = b * h * (s * (s + 1) // 2 if causal else s * s)
+    flops = 4.0 * d * pairs
+    nbytes = 2.0 * (2 * b * s * h * d + 2 * b * s * kv * d) + 4.0 * b * h * s
+    bound_ms, bound_by = bound(flops, nbytes)
+    row = dict(case=name, shape=[b, s, h, kv, d], causal=causal, max_abs_err=err,
+               lse_err=lse_err, tol=TOL_RULE, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+               bound_ms=bound_ms, bound_by=bound_by, tflops=flops / ms / 1e9)
+    log("kernel_flash", **row)
+    return row
+
+
+def check_paged(name, contexts, h, kv, d, block_size, max_blocks, gen):
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    from ray_tpu_torch.kernels.paged_attention import (
+        gather_rows,
+        paged_attention,
+        paged_attention_reference,
+    )
+
+    dev = "cuda"
+    b = len(contexts)
+    need = [-(-c // block_size) for c in contexts]
+    num_blocks = 1 + sum(need)
+    # shuffled, non-contiguous block ids; an inactive slot (context 0)
+    # keeps an all-null table at position 0, as the engine pads it
+    perm = torch.randperm(num_blocks - 1, generator=torch.Generator().manual_seed(7)) + 1
+    tables = torch.zeros((b, max_blocks), dtype=torch.int32)
+    off = 0
+    for i, n in enumerate(need):
+        tables[i, :n] = perm[off:off + n].to(torch.int32)
+        off += n
+    positions = torch.tensor([max(c - 1, 0) for c in contexts], dtype=torch.int32)
+    tables, positions = tables.to(dev), positions.to(dev)
+    pool_shape = (num_blocks * block_size, kv, d)
+    kp = torch.randn(pool_shape, generator=gen, device=dev).to(torch.bfloat16)
+    vp = torch.randn(pool_shape, generator=gen, device=dev).to(torch.bfloat16)
+    q = torch.randn((b, h, d), generator=gen, device=dev).to(torch.bfloat16)
+    out = paged_attention(q, kp, vp, tables, positions, block_size)
+    ref = paged_attention_reference(q, kp, vp, tables, positions, block_size)
+    torch.cuda.synchronize()
+    err = max_err(out, ref, f"paged {name}")
+    ms = cuda_ms(lambda: paged_attention(q, kp, vp, tables, positions, block_size))
+    plain_ms = cuda_ms(
+        lambda: paged_attention_reference(q, kp, vp, tables, positions, block_size), iters=5)
+    gk, gv = gather_rows(kp, tables, block_size), gather_rows(vp, tables, block_size)
+    rows = torch.arange(gk.shape[1], device=dev)
+    visible = (rows[None, :] <= positions[:, None].long())[:, None, None, :]
+    qs = q[:, :, None, :]
+    ks, vs = (x.repeat_interleave(h // kv, dim=2).transpose(1, 2) for x in (gk, gv))
+    lib_ms = cuda_ms(lambda: sdpa(qs, ks, vs, attn_mask=visible))
+    ctx = [max(c, 1) for c in contexts]
+    flops = 4.0 * h * d * sum(ctx)
+    nbytes = (2.0 * 2 * kv * d * sum(ctx) + 4.0 * sum(-(-c // block_size) for c in ctx)
+              + 4.0 * b + 2.0 * 2 * b * h * d)
+    bound_ms, bound_by = bound(flops, nbytes)
+    row = dict(case=name, contexts=contexts, heads=[h, kv, d], block_size=block_size,
+               max_abs_err=err, tol=TOL_RULE, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+               bound_ms=bound_ms, bound_by=bound_by, gbps=nbytes / ms / 1e6)
+    log("kernel_paged", **row)
+    return row
+
+
+def phase_kernels():
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    flash_main = check_flash("causal_s2048", 1, 2048, 32, 32, 128, True, gen)
+    flash_rows = [
+        flash_main,
+        check_flash("full_s2048", 1, 2048, 32, 32, 128, False, gen),
+        check_flash("causal_s1000", 1, 1000, 32, 32, 128, True, gen),
+        check_flash("full_s1000", 1, 1000, 32, 32, 128, False, gen),
+        check_flash("gqa_kv8_s1000", 1, 1000, 32, 8, 128, True, gen),
+        check_flash("d64_s300", 2, 300, 4, 4, 64, True, gen),
+        check_flash("d64_full_s300", 2, 300, 4, 2, 64, False, gen),
+        check_flash("d256_s257", 1, 257, 4, 4, 256, True, gen),
+        check_flash("d256_full_s130", 2, 130, 4, 2, 256, False, gen),
+    ]
+    # ragged contexts up to 4096 and one inactive slot (context 0)
+    contexts = [4096, 1, 17, 1000, 2500, 0, 513, 3333]
+    paged_main = check_paged("b8_ctx4096", contexts, 32, 32, 128, 16, 256, gen)
+    paged_rows = [
+        paged_main,
+        check_paged("gqa_kv8", [300, 1, 777, 0], 32, 8, 128, 16, 64, gen),
+        check_paged("d64", [100, 600, 0], 4, 2, 64, 16, 64, gen),
+        check_paged("d256", [100, 600, 0], 4, 4, 256, 8, 128, gen),
+    ]
+    return flash_rows, paged_rows
+
+
+def phase_forward(params, cfg):
+    import dataclasses
+
+    from ray_tpu_torch.kernels.flash_attention import flash_attention
+    from ray_tpu_torch.models.transformer import forward
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (1, 2048), generator=gen, device="cuda")
+    before = flash_attention.launches
+    flash_logits = forward(params, tokens, cfg).float()
+    launches = flash_attention.launches - before
+    plain_logits = forward(params, tokens, cfg, use_flash=False).float()
+    params32 = {k: v.float() for k, v in params.items()}
+    ref32 = forward(params32, tokens, dataclasses.replace(cfg, dtype=torch.float32))
+    del params32
+    torch.cuda.empty_cache()
+    if launches != cfg.n_layers:
+        raise AssertionError(f"forward launched flash {launches} times, want {cfg.n_layers}")
+    if not torch.isfinite(flash_logits).all():
+        raise AssertionError("forward: non-finite logits")
+    diff = (flash_logits - plain_logits).abs()
+    flash_dev = (flash_logits - ref32).abs().mean().item()
+    plain_dev = (plain_logits - ref32).abs().mean().item()
+    agree = (flash_logits.argmax(-1) == plain_logits.argmax(-1)).float().mean().item()
+    row = dict(shape=list(flash_logits.shape), flash_launches=launches,
+               max_abs_diff=diff.max().item(), mean_abs_diff=diff.mean().item(),
+               flash_vs_fp32_mean=flash_dev, plain_vs_fp32_mean=plain_dev,
+               argmax_agree=agree, logit_abs_max=plain_logits.abs().max().item(),
+               tol=[FWD_MAX_ABS, FWD_MEAN_ABS, FWD_NOISE])
+    log("forward_llama2_7b", **row)
+    if row["max_abs_diff"] > FWD_MAX_ABS or row["mean_abs_diff"] > FWD_MEAN_ABS \
+            or flash_dev > FWD_NOISE * plain_dev:
+        raise AssertionError(f"forward: flash vs plain logits beyond tolerance: {row}")
+
+
+def phase_decode_check(params, cfg, ecfg):
+    """One teacher-forced decode step at the engine's shapes through the
+    paged kernel against the plain path, and its time."""
+    from ray_tpu_torch.models import generation as G
+
+    gen = torch.Generator().manual_seed(3)
+    b, mb, bs = ecfg.max_batch, ecfg.max_blocks_per_seq, ecfg.block_size
+    lengths = [1500, 16, 700, 33, 1100, 250, 0, 999]  # slot 6 inactive
+    pool = G.init_paged_pool(cfg, 1 + sum(-(-n // bs) for n in lengths) + b, bs)
+    prefill, decode, greedy = G.make_paged_fns(cfg, block_size=bs)
+    _, plain_decode, _ = G.make_paged_fns(cfg, block_size=bs, use_kernels=False)
+    tables = torch.zeros((b, mb), dtype=torch.int32)
+    nxt = 1
+    last = torch.zeros(b, dtype=torch.int32)
+    for i, n in enumerate(lengths):
+        if n == 0:
+            continue
+        nblk = -(-(n + 1) // bs)  # room for the decoded token
+        tables[i, :nblk] = torch.arange(nxt, nxt + nblk, dtype=torch.int32)
+        nxt += nblk
+        prompt = torch.randint(1, cfg.vocab_size, (1, n), generator=gen, dtype=torch.int32)
+        logits, pool = prefill(params, prompt.cuda(), tables[i:i + 1].cuda(), pool, n)
+        last[i] = int(torch.argmax(logits[0]))
+    active = torch.tensor([n > 0 for n in lengths]).cuda()
+    positions = torch.tensor(lengths, dtype=torch.int32).cuda()
+    args = (last.cuda(), positions, tables.cuda())
+    kernel_logits, pool = decode(params, *args, pool, active)
+    plain_logits, pool = plain_decode(params, *args, pool, active)
+    torch.cuda.synchronize()
+    rows = [i for i, n in enumerate(lengths) if n > 0]
+    if not torch.isfinite(kernel_logits).all():
+        raise AssertionError("decode: non-finite logits (an inactive slot leaked?)")
+    diff = (kernel_logits[rows] - plain_logits[rows]).abs()
+    agree = bool((kernel_logits[rows].argmax(-1) == plain_logits[rows].argmax(-1)).all())
+    step_ms = cuda_ms(lambda: greedy(params, *args, pool, active), iters=10)
+    step_profile = device_profile(lambda: greedy(params, *args, pool, active), steps=3)
+    prompt = torch.randint(1, cfg.vocab_size, (1, 2048), dtype=torch.int32, device="cuda")
+    prefill_profile = device_profile(lambda: prefill(params, prompt, tables[:1].cuda(), pool, 1500),
+                                     steps=2)
+    row = dict(batch=b, lengths=lengths, max_abs_diff=diff.max().item(),
+               mean_abs_diff=diff.mean().item(), argmax_agree=agree,
+               tol=[FWD_MAX_ABS, FWD_MEAN_ABS], decode_step_ms=step_ms,
+               decode_step_profile=step_profile, prefill_2048_profile=prefill_profile)
+    log("decode_step_check", **row)
+    if row["max_abs_diff"] > FWD_MAX_ABS or row["mean_abs_diff"] > FWD_MEAN_ABS:
+        raise AssertionError(f"decode: kernel vs plain logits beyond tolerance: {row}")
+    return step_ms
+
+
+def phase_serve(params, cfg, ecfg):
+    """The main path: 12 greedy requests and one sampled, staggered."""
+    from ray_tpu_torch.kernels.flash_attention import flash_attention
+    from ray_tpu_torch.kernels.paged_attention import paged_attention
+    from ray_tpu_torch.serve.llm.engine import InferenceEngine
+
+    gen = torch.Generator().manual_seed(5)
+    lengths = torch.linspace(16, 1500, 12).round().int().tolist()
+    lengths = [lengths[i] for i in torch.randperm(12, generator=gen).tolist()]
+    prompts = [torch.randint(1, cfg.vocab_size, (n,), generator=gen).tolist() for n in lengths]
+    sampled_prompt = torch.randint(1, cfg.vocab_size, (200,), generator=gen).tolist()
+    max_new = 32
+    engine = InferenceEngine(params, cfg, ecfg, deployment="llama2-7b", device="cuda")
+    try:
+        flash_attention.launches = 0
+        paged_attention.launches = 0
+        t0 = time.perf_counter()
+        streams = []
+        for i, p in enumerate(prompts):
+            streams.append(engine.submit(p, max_new_tokens=max_new))
+            if i == 5:
+                sampled = engine.submit(sampled_prompt, max_new_tokens=max_new,
+                                        temperature=0.8, top_k=40, seed=11)
+                streams.append(sampled)
+            time.sleep(0.02 * (i % 3))
+        outs = [s.tokens() for s in streams]
+        greedy_outs = [o for s, o in zip(streams, outs) if s is not sampled]
+        wall = time.perf_counter() - t0
+        counts = {"flash_attention": flash_attention.launches,
+                  "paged_attention": paged_attention.launches}
+        stats = engine.kv_stats()
+    finally:
+        engine.shutdown()
+    if any(len(o) != max_new for o in outs):
+        raise AssertionError(f"streams ended short: {[len(o) for o in outs]}")
+    if stats["blocks_free"] != stats["blocks_total"] or stats["blocks_committed"] != 0:
+        raise AssertionError(f"blocks not freed after serving: {stats}")
+    n_req = len(streams)
+    if counts["flash_attention"] != n_req * cfg.n_layers:
+        raise AssertionError(f"flash launches {counts['flash_attention']} != one per layer "
+                             f"of each of {n_req} prefills")
+    steps = counts["paged_attention"] / cfg.n_layers
+    if steps != int(steps) or steps < max_new - 1:
+        raise AssertionError(f"paged launches {counts['paged_attention']} are not one per "
+                             f"layer of at least {max_new - 1} decode steps")
+    ttft = sorted(s.ttft_s * 1e3 for s in streams)
+    n_tok = sum(len(o) for o in outs)
+    row = dict(requests=n_req, prompt_lengths=lengths + [len(sampled_prompt)],
+               tokens=n_tok, wall_s=wall, tokens_per_s=n_tok / wall,
+               ttft_p50_ms=ttft[len(ttft) // 2],
+               ttft_p99_ms=ttft[min(len(ttft) - 1, math.ceil(0.99 * len(ttft)) - 1)],
+               decode_steps=int(steps), launches=counts)
+    log("serve", **row)
+    return prompts, greedy_outs, counts
+
+
+def phase_first_tokens(params, cfg, prompts, outs):
+    """Each greedy request's first token against forward's argmax."""
+    from ray_tpu_torch.models.transformer import forward
+
+    worst_gap = 0.0
+    mismatches = 0
+    for p, out in zip(prompts, outs):
+        logits = forward(params, torch.tensor([p], device="cuda"), cfg)[0, -1].float()
+        top2 = torch.topk(logits, 2).values
+        if int(torch.argmax(logits)) != out[0]:
+            mismatches += 1
+            gap = (top2[0] - logits[out[0]]).item()
+            worst_gap = max(worst_gap, gap)
+            if gap > TOP2_GAP:
+                raise AssertionError(f"first token {out[0]} is not forward's argmax "
+                                     f"and trails it by {gap} > {TOP2_GAP}")
+    log("first_tokens", checked=len(prompts), mismatches_within_tol=mismatches,
+        worst_gap=worst_gap, tol=TOP2_GAP)
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
+        return 1
+    import ray_tpu_torch  # noqa: F401  (fails outside a checkout)
+    from ray_tpu_torch.models.transformer import LLAMA2_7B, init_params
+    from ray_tpu_torch.serve.llm.engine import EngineConfig
+
+    # fp32 results are compared below: no TF32 anywhere
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+    smi = phase_card()
+    phase_build()
+    flash_rows, paged_rows = phase_kernels()
+
+    cfg = LLAMA2_7B
+    t0 = time.perf_counter()
+    params = init_params(torch.Generator(device="cuda").manual_seed(0), cfg, device="cuda")
+    torch.cuda.synchronize()
+    log("weights", config="LLAMA2_7B", params=cfg.num_params(), seconds=time.perf_counter() - t0,
+        gib=sum(p.numel() * p.element_size() for p in params.values()) / 2**30)
+    phase_forward(params, cfg)
+    ecfg = EngineConfig(block_size=16, num_blocks=1025, max_batch=8, max_blocks_per_seq=256)
+    phase_decode_check(params, cfg, ecfg)
+    torch.cuda.empty_cache()
+    prompts, outs, counts = phase_serve(params, cfg, ecfg)
+    phase_first_tokens(params, cfg, prompts, outs)
+    log("total", seconds=time.perf_counter() - t_start,
+        peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+
+    def entry(name, source, replaces, row):
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": counts[name], "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+                "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                "bound_by": row["bound_by"], "library_ms": row["library_ms"]}
+
+    print(smi)
+    print(json.dumps({"kernels": [
+        entry("flash_attention", "ray_tpu_torch/csrc/flash_attention.cu",
+              "ray_tpu/ops/attention.py:124", flash_rows[0]),
+        entry("paged_attention", "ray_tpu_torch/csrc/paged_attention.cu",
+              "ray_tpu/models/generation.py:187", paged_rows[0]),
+    ]}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

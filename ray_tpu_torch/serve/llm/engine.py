@@ -1,0 +1,537 @@
+"""Continuous-batching inference engine: the in-replica serving loop.
+
+Port of ``ray_tpu/serve/llm/engine.py``. One background thread runs the
+schedule vLLM popularised — prefill new requests as decode-batch slots free
+up, then advance every running sequence one token per step:
+
+* **prefill/decode split** — each admitted request is prefilled alone at a
+  power-of-two padded length, through the flash-attention kernel, emitting
+  its first token (the stream's TTFT); decode then runs at a fixed
+  ``max_batch`` through the paged-attention kernel, with inactive slots
+  masked to the null block.
+* **in-flight batching** — new requests join the running batch at step
+  boundaries; nobody waits for a "batch" to form or drain.
+* **immediate reclamation** — a finished sequence frees its KV blocks at
+  the step boundary it finishes on, not when its batch cohort ends.
+* **KV-aware admission** — ``submit`` reserves a request's worst-case block
+  need (prompt + max_new_tokens) up front; when the reservation cannot
+  fit, it sheds with a typed :class:`DeploymentOverloadedError` instead of
+  queueing into a guaranteed stall. Admitted sequences can therefore never
+  deadlock on allocation.
+
+The fixed decode shape also buys schedule-invariance: a sequence's tokens
+depend only on its own prompt and (seed, step) generator, never on which
+neighbours share the batch.
+
+Not ported yet (they live in ``ray_tpu`` and the port imports nothing of
+it): the ``ray_tpu_llm_*`` metrics and the memplane KV provider.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import itertools
+import queue
+import threading
+import time
+from typing import Any, Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ray_tpu_torch._device import resolve_device
+from ray_tpu_torch.models import generation as G
+from ray_tpu_torch.serve.exceptions import DeploymentOverloadedError
+from ray_tpu_torch.serve.llm.kv_cache import BlockAllocator, BlockTable
+
+__all__ = ["EngineConfig", "InferenceEngine", "TokenStream"]
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineConfig:
+    """Sizing knobs for one engine instance (one replica).
+
+    ``num_blocks`` includes the reserved null block; usable KV capacity is
+    ``(num_blocks - 1) * block_size`` tokens. ``max_waiting`` bounds the
+    waiting queue BEYOND currently-free decode slots (``max_waiting=0``
+    still admits straight into an idle slot) — with capacity reserved at
+    admission, it is a latency bound, not a safety valve.
+    """
+
+    block_size: int = 16
+    num_blocks: int = 256
+    max_batch: int = 4
+    max_blocks_per_seq: int = 32
+    max_waiting: int = 32
+    retry_after_s: float = 1.0
+    prefill_bucket_min: int = 8
+    idle_poll_s: float = 0.05
+    stream_timeout_s: float = 120.0
+
+
+class _Request:
+    __slots__ = (
+        "id",
+        "prompt",
+        "max_new_tokens",
+        "temperature",
+        "top_k",
+        "seed",
+        "eos_token",
+        "need_blocks",
+        "out",
+        "submitted_at",
+    )
+
+    def __init__(self, **kw):
+        for k, v in kw.items():
+            setattr(self, k, v)
+
+
+class _Running:
+    """One occupied decode slot: request + block table + decode state."""
+
+    __slots__ = ("req", "table", "last_token", "generated")
+
+    def __init__(self, req: _Request, table: BlockTable, first_token: int):
+        self.req = req
+        self.table = table
+        self.last_token = first_token
+        self.generated = 1
+
+
+class TokenStream:
+    """Per-request consumer handle: iterate tokens as the engine emits
+    them. Terminates cleanly at end-of-sequence; engine-side failures
+    re-raise here (typed, never a silent hang — a stalled engine trips
+    ``stream_timeout_s``)."""
+
+    def __init__(self, request_id: int, timeout_s: float):
+        self.request_id = request_id
+        self._timeout_s = timeout_s
+        self._q: "queue.Queue" = queue.Queue()
+        self._submitted_at = time.perf_counter()
+        self.ttft_s: Optional[float] = None
+        self.finish_reason: Optional[str] = None
+
+    # engine side -------------------------------------------------------
+    def _emit(self, token: int) -> None:
+        if self.ttft_s is None:
+            self.ttft_s = time.perf_counter() - self._submitted_at
+        self._q.put(("tok", token))
+
+    def _finish(self, reason: str) -> None:
+        self._q.put(("done", reason))
+
+    def _fail(self, error: BaseException) -> None:
+        self._q.put(("err", error))
+
+    # consumer side -----------------------------------------------------
+    def __iter__(self):
+        while True:
+            try:
+                kind, payload = self._q.get(timeout=self._timeout_s)
+            except queue.Empty:
+                raise TimeoutError(
+                    f"token stream {self.request_id} stalled for "
+                    f"{self._timeout_s:g}s"
+                ) from None
+            if kind == "tok":
+                yield payload
+            elif kind == "done":
+                self.finish_reason = payload
+                return
+            else:
+                raise payload
+
+    def tokens(self) -> List[int]:
+        """Drain the stream to completion and return every token."""
+        return list(self)
+
+
+class InferenceEngine:
+    """Continuous-batching engine over a paged KV pool (one per replica).
+
+    ``params`` must already lie on ``device``; the pool is allocated there.
+    """
+
+    def __init__(
+        self,
+        params,
+        model_cfg,
+        engine_cfg: Optional[EngineConfig] = None,
+        *,
+        deployment: str = "llm",
+        device="cuda",
+        start: bool = True,
+    ):
+        ecfg = engine_cfg or EngineConfig()
+        if ecfg.max_batch < 1:
+            raise ValueError("max_batch must be >= 1")
+        self.device = resolve_device(device)
+        wrong = [k for k, v in params.items() if v.device.type != self.device.type]
+        if wrong:
+            raise ValueError(f"params {wrong} do not lie on {self.device}")
+        self.params = params
+        self.model_cfg = model_cfg
+        self.cfg = ecfg
+        self.deployment = deployment
+        self._prefill, self._decode, self._decode_greedy = G.make_paged_fns(
+            model_cfg, block_size=ecfg.block_size
+        )
+        self._pool = G.init_paged_pool(
+            model_cfg, ecfg.num_blocks, ecfg.block_size, device=self.device
+        )
+        self._alloc = BlockAllocator(ecfg.num_blocks, ecfg.block_size)
+        self._slots: List[Optional[_Running]] = [None] * ecfg.max_batch
+        self._waiting: "list[tuple[_Request, TokenStream]]" = []
+        self._streams: Dict[int, TokenStream] = {}
+        self._committed_blocks = 0
+        self._ids = itertools.count()
+        self._cv = threading.Condition()
+        self._stop = False
+        self._thread: Optional[threading.Thread] = None
+        self.max_context = min(
+            ecfg.max_blocks_per_seq * ecfg.block_size, model_cfg.max_seq_len
+        )
+        if start:
+            self.start()
+
+    # -- lifecycle ------------------------------------------------------
+
+    def start(self) -> None:
+        if self._thread is None:
+            self._thread = threading.Thread(
+                target=self._loop, name="llm-engine", daemon=True
+            )
+            self._thread.start()
+
+    def shutdown(self, timeout_s: float = 10.0) -> None:
+        """Stop the loop and fail any unfinished streams (typed)."""
+        with self._cv:
+            self._stop = True
+            self._cv.notify_all()
+        if self._thread is not None:
+            self._thread.join(timeout=timeout_s)
+        err = RuntimeError("inference engine shut down")
+        with self._cv:
+            for req, stream in self._waiting:
+                self._committed_blocks -= req.need_blocks
+                stream._fail(err)
+            self._waiting.clear()
+            for i, run in enumerate(self._slots):
+                if run is not None:
+                    run.table.release()
+                    self._committed_blocks -= run.req.need_blocks
+                    run.req.out._fail(err)
+                    self._slots[i] = None
+
+    # -- admission ------------------------------------------------------
+
+    def submit(
+        self,
+        prompt: Sequence[int],
+        *,
+        max_new_tokens: int = 16,
+        temperature: float = 0.0,
+        top_k: int = 0,
+        seed: int = 0,
+        eos_token: Optional[int] = None,
+    ) -> TokenStream:
+        """Admit a request (KV-reservation admission control) and return
+        its :class:`TokenStream`. Sheds with ``DeploymentOverloadedError``
+        when the worst-case block need cannot be reserved or the waiting
+        queue is at its bound — fast, typed, never queued into a stall."""
+        prompt = [int(t) for t in prompt]
+        if not prompt:
+            raise ValueError("prompt must be non-empty")
+        vocab = self.model_cfg.vocab_size
+        if min(prompt) < 0 or max(prompt) >= vocab:
+            # JAX clamps an out-of-range embedding gather; on the card it is
+            # a device-side fault, so reject it here
+            raise ValueError(f"prompt tokens must lie in [0, {vocab})")
+        if max_new_tokens < 1:
+            raise ValueError("max_new_tokens must be >= 1")
+        total = len(prompt) + max_new_tokens
+        if total > self.max_context:
+            raise ValueError(
+                f"prompt ({len(prompt)}) + max_new_tokens ({max_new_tokens}) "
+                f"exceeds engine context {self.max_context} "
+                f"(max_blocks_per_seq x block_size, capped by max_seq_len)"
+            )
+        need = self._alloc.blocks_for_tokens(total)
+        usable = self._alloc.num_usable
+        with self._cv:
+            if self._stop:
+                raise RuntimeError("inference engine is shut down")
+            free_slots = sum(1 for s in self._slots if s is None)
+            overloaded = (
+                len(self._waiting) >= self.cfg.max_waiting + free_slots
+                or self._committed_blocks + need > usable
+            )
+            if overloaded:
+                raise DeploymentOverloadedError(
+                    deployment=self.deployment,
+                    retry_after_s=self.cfg.retry_after_s,
+                    load=self._committed_blocks + need,
+                    capacity=usable,
+                )
+            req = _Request(
+                id=next(self._ids),
+                prompt=prompt,
+                max_new_tokens=int(max_new_tokens),
+                temperature=float(temperature),
+                top_k=int(top_k),
+                seed=int(seed),
+                eos_token=eos_token,
+                need_blocks=need,
+                out=None,
+                submitted_at=time.perf_counter(),
+            )
+            stream = TokenStream(req.id, self.cfg.stream_timeout_s)
+            req.out = stream
+            self._committed_blocks += need
+            self._waiting.append((req, stream))
+            self._streams[req.id] = stream
+            self._cv.notify_all()
+        return stream
+
+    # -- stats ----------------------------------------------------------
+
+    def kv_stats(self) -> Dict[str, Any]:
+        """Host-side KV/batching occupancy snapshot."""
+        usable = self._alloc.num_usable
+        free = self._alloc.num_free
+        with self._cv:
+            running = sum(1 for s in self._slots if s is not None)
+            waiting = len(self._waiting)
+            committed = self._committed_blocks
+        k = self._pool["k"]
+        bytes_per_block = (
+            k.element_size() * 2 * k.shape[0] * self.cfg.block_size * k.shape[2] * k.shape[3]
+        )
+        return {
+            "deployment": self.deployment,
+            "block_size": self.cfg.block_size,
+            "blocks_total": usable,
+            "blocks_free": free,
+            "blocks_committed": committed,
+            "occupancy": 0.0 if not usable else 1.0 - free / usable,
+            "running": running,
+            "waiting": waiting,
+            "bytes_per_block": bytes_per_block,
+        }
+
+    # -- the loop -------------------------------------------------------
+
+    def _has_active(self) -> bool:
+        return any(s is not None for s in self._slots)
+
+    def _loop(self) -> None:
+        """One-step-pipelined scheduler: step k+1 is dispatched to the
+        device BEFORE step k's tokens are emitted to consumers, so queue
+        wakeups and next-iteration admissions overlap device compute
+        instead of extending the step critical path."""
+        inflight = None
+        while True:
+            admits: List[tuple] = []
+            with self._cv:
+                while (
+                    not self._stop
+                    and not self._waiting
+                    and not self._has_active()
+                    and inflight is None
+                ):
+                    self._cv.wait(self.cfg.idle_poll_s)
+                if self._stop:
+                    return
+                for i, slot in enumerate(self._slots):
+                    if slot is None and self._waiting:
+                        admits.append((i, *self._waiting.pop(0)))
+            for slot_idx, req, stream in admits:
+                self._do_prefill(slot_idx, req, stream)
+            emissions: List[tuple] = []
+            finishes: List[tuple] = []
+            if inflight is not None:
+                emissions, finishes = self._retire_step(inflight)
+                inflight = None
+            # finished slots detach (blocks freed) before the next
+            # dispatch; their streams see the 'done' marker after their
+            # final token below
+            for slot_idx, _run, _reason in finishes:
+                self._detach_slot(slot_idx)
+            if self._has_active():
+                inflight = self._dispatch_step()
+            for stream, tok in emissions:
+                stream._emit(tok)
+            for _slot_idx, run, reason in finishes:
+                run.req.out._finish(reason)
+
+    # -- phases ---------------------------------------------------------
+
+    def _bucket(self, n: int) -> int:
+        b = max(int(self.cfg.prefill_bucket_min), 1)
+        while b < n:
+            b *= 2
+        return b
+
+    def _to_device(self, a: np.ndarray) -> torch.Tensor:
+        """Host array -> device tensor without synchronising: a pinned
+        staging copy and an asynchronous transfer on the CUDA stream (a
+        pageable copy would wait for the step in flight)."""
+        t = torch.from_numpy(a)
+        if self.device.type == "cuda":
+            t = t.pin_memory().to(self.device, non_blocking=True)
+        return t
+
+    def _sample(self, logits_row: torch.Tensor, req: _Request, step: int) -> int:
+        """One token from one sequence's logits; the generator is keyed by
+        (seed, step) only, so sampling is batch-composition invariant."""
+        if req.temperature and req.temperature > 0:
+            tok = G.sample_token(
+                logits_row.float().cpu(),
+                temperature=req.temperature,
+                top_k=req.top_k,
+                key=G.sequence_key(req.seed, step),
+            )
+            return int(tok)
+        return int(torch.argmax(logits_row))
+
+    def _detach_slot(self, slot_idx: int) -> None:
+        """Free a finished slot's KV blocks + admission reservation (the
+        stream's 'done' marker is the caller's job, ordered after the
+        final token emission)."""
+        run = self._slots[slot_idx]
+        run.table.release()  # blocks return to the pool immediately
+        with self._cv:
+            self._committed_blocks -= run.req.need_blocks
+            self._slots[slot_idx] = None
+            self._streams.pop(run.req.id, None)
+            self._cv.notify_all()
+
+    def _finish(self, slot_idx: int, reason: str) -> None:
+        run = self._slots[slot_idx]
+        self._detach_slot(slot_idx)
+        run.req.out._finish(reason)
+
+    def _fail_slot(self, slot_idx: int, error: BaseException) -> None:
+        run = self._slots[slot_idx]
+        run.table.release()
+        with self._cv:
+            self._committed_blocks -= run.req.need_blocks
+            self._slots[slot_idx] = None
+            self._streams.pop(run.req.id, None)
+        run.req.out._fail(error)
+
+    def _do_prefill(self, slot_idx: int, req: _Request, stream: TokenStream) -> None:
+        table = BlockTable(self._alloc)
+        try:
+            table.reserve(len(req.prompt))  # reserved at admission: cannot fail
+            table.length = len(req.prompt)
+            bucket = self._bucket(len(req.prompt))
+            toks = np.zeros((1, bucket), np.int32)
+            toks[0, : len(req.prompt)] = req.prompt
+            bt = np.asarray([table.as_list(self.cfg.max_blocks_per_seq)], np.int32)
+            logits, self._pool = self._prefill(
+                self.params,
+                self._to_device(toks),
+                self._to_device(bt),
+                self._pool,
+                len(req.prompt),
+            )
+            first = self._sample(logits[0], req, step=0)
+        except BaseException as e:  # noqa: BLE001 — typed failure to the stream
+            table.release()
+            with self._cv:
+                self._committed_blocks -= req.need_blocks
+                self._streams.pop(req.id, None)
+            stream._fail(e)
+            return
+        run = _Running(req, table, first)
+        self._slots[slot_idx] = run
+        stream._emit(first)  # TTFT: admission -> first token
+        if self._is_done(run, first):
+            self._finish(slot_idx, self._done_reason(run, first))
+
+    def _is_done(self, run: _Running, token: int) -> bool:
+        return (
+            run.generated >= run.req.max_new_tokens
+            or (run.req.eos_token is not None and token == run.req.eos_token)
+        )
+
+    def _done_reason(self, run: _Running, token: int) -> str:
+        if run.req.eos_token is not None and token == run.req.eos_token:
+            return "stop"
+        return "length"
+
+    def _dispatch_step(self):
+        """Enqueue one decode step on the device and return without
+        waiting for it; its result stays on the device until
+        ``_retire_step``. A batch where every sequence decodes greedily
+        uses the fused-argmax step (B ints cross back to the host, not
+        B x vocab logits)."""
+        b = self.cfg.max_batch
+        mb = self.cfg.max_blocks_per_seq
+        tokens = np.zeros((b,), np.int32)
+        positions = np.zeros((b,), np.int32)
+        tables = np.zeros((b, mb), np.int32)
+        active = np.zeros((b,), bool)
+        live: List[int] = []
+        fused = True
+        for i, run in enumerate(self._slots):
+            if run is None:
+                continue
+            # the input token lands at position `length`; growing the table
+            # here can allocate a block — guaranteed by the admission
+            # reservation to succeed
+            pos = run.table.length
+            run.table.append_token()
+            tokens[i] = run.last_token
+            positions[i] = pos
+            tables[i] = run.table.as_list(mb)
+            active[i] = True
+            live.append(i)
+            if run.req.temperature and run.req.temperature > 0:
+                fused = False
+        fn = self._decode_greedy if fused else self._decode
+        try:
+            out, self._pool = fn(
+                self.params,
+                self._to_device(tokens),
+                self._to_device(positions),
+                self._to_device(tables),
+                self._pool,
+                self._to_device(active),
+            )
+        except BaseException as e:  # noqa: BLE001
+            for i in list(live):
+                self._fail_slot(i, e)
+            return None
+        return (live, out, fused)
+
+    def _retire_step(self, inflight) -> tuple:
+        """Block on the in-flight step's result and fold it into the run
+        states. Returns ``(emissions, finishes)`` for the loop to deliver
+        AFTER it dispatches the next step."""
+        live, out, fused = inflight
+        try:
+            host_out = out.cpu()  # blocks until the device step lands
+        except BaseException as e:  # noqa: BLE001
+            for i in list(live):
+                if self._slots[i] is not None:
+                    self._fail_slot(i, e)
+            return [], []
+        emissions: List[tuple] = []
+        finishes: List[tuple] = []
+        for i in live:
+            run = self._slots[i]
+            if fused:
+                tok = int(host_out[i])
+            else:
+                tok = self._sample(host_out[i], run.req, step=run.generated)
+            run.generated += 1
+            run.last_token = tok
+            emissions.append((run.req.out, tok))
+            if self._is_done(run, tok):
+                finishes.append((i, run, self._done_reason(run, tok)))
+        return emissions, finishes

@@ -1,0 +1,144 @@
+"""Paged KV cache bookkeeping (the port's own copy of
+``ray_tpu/serve/llm/kv_cache.py``): fixed-size blocks over a preallocated
+device pool, handed out by a free-list allocator and mapped per sequence
+by a block table.
+
+The device tensors live in ``ray_tpu_torch.models.generation`` (``init_paged_pool``
+/ ``make_paged_fns``); this module is the host-side half: which pool block
+belongs to which sequence. Fixed-size blocks make fragmentation structural
+zero — any request for ``n <= num_free`` blocks always succeeds, there is
+no external fragmentation to compact and no defrag pause on the decode
+path. Block 0 is reserved as the null block (padding target for block
+tables and masked writes) and is never allocated.
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import List
+
+__all__ = [
+    "KVCacheExhausted",
+    "BlockAllocator",
+    "BlockTable",
+    "NULL_BLOCK",
+]
+
+# block 0 of every pool is the write/padding sink; never owned by a sequence
+NULL_BLOCK = 0
+
+
+class KVCacheExhausted(Exception):
+    """Typed allocator failure: the pool has fewer free blocks than the
+    request needs. The engine's admission control makes this unreachable
+    for admitted sequences (capacity is reserved up front); reaching it
+    from ``allocate`` means an accounting bug, reaching it from admission
+    becomes a ``DeploymentOverloadedError`` shed."""
+
+    def __init__(self, requested: int, free: int):
+        super().__init__(
+            f"KV cache exhausted: requested {requested} block(s), "
+            f"{free} free"
+        )
+        self.requested = requested
+        self.free = free
+
+
+class BlockAllocator:
+    """LIFO free-list over blocks ``1..num_blocks-1`` (block 0 reserved).
+
+    All-or-nothing: ``allocate(n)`` either returns ``n`` distinct blocks
+    or raises ``KVCacheExhausted`` without side effects. LIFO reuse keeps
+    recently-freed blocks hot (their pool slots are most likely still in
+    cache on the host-staging path).
+    """
+
+    def __init__(self, num_blocks: int, block_size: int):
+        if num_blocks < 2:
+            raise ValueError("need at least 2 blocks (block 0 is reserved)")
+        if block_size < 1:
+            raise ValueError("block_size must be >= 1")
+        self.num_blocks = int(num_blocks)
+        self.block_size = int(block_size)
+        self._lock = threading.Lock()
+        self._free: List[int] = list(range(self.num_blocks - 1, 0, -1))
+        self._held: set = set()
+
+    @property
+    def num_usable(self) -> int:
+        """Total allocatable blocks (pool minus the reserved null block)."""
+        return self.num_blocks - 1
+
+    @property
+    def num_free(self) -> int:
+        with self._lock:
+            return len(self._free)
+
+    def blocks_for_tokens(self, n_tokens: int) -> int:
+        """Blocks needed to hold ``n_tokens`` cache entries."""
+        return -(-max(0, int(n_tokens)) // self.block_size)
+
+    def allocate(self, n: int = 1) -> List[int]:
+        if n < 0:
+            raise ValueError(f"cannot allocate {n} blocks")
+        with self._lock:
+            if n > len(self._free):
+                raise KVCacheExhausted(n, len(self._free))
+            out = [self._free.pop() for _ in range(n)]
+            self._held.update(out)
+            return out
+
+    def free(self, blocks: List[int]) -> None:
+        """Return blocks to the free list; double-free and foreign blocks
+        are accounting bugs and raise rather than corrupting the pool."""
+        with self._lock:
+            for b in blocks:
+                if b not in self._held:
+                    raise ValueError(
+                        f"freeing block {b} that is not allocated "
+                        f"(double free or foreign block)"
+                    )
+                self._held.discard(b)
+                self._free.append(b)
+
+
+class BlockTable:
+    """Per-sequence block list plus token length; grows one block at a
+    time as decode crosses block boundaries."""
+
+    __slots__ = ("allocator", "blocks", "length")
+
+    def __init__(self, allocator: BlockAllocator, n_tokens: int = 0):
+        self.allocator = allocator
+        self.blocks: List[int] = []
+        self.length = 0
+        if n_tokens:
+            self.reserve(n_tokens)
+
+    def reserve(self, n_tokens: int) -> None:
+        """Grow the table to cover ``n_tokens`` total positions."""
+        need = self.allocator.blocks_for_tokens(n_tokens) - len(self.blocks)
+        if need > 0:
+            self.blocks.extend(self.allocator.allocate(need))
+
+    def append_token(self) -> int:
+        """Account one more cache entry, allocating a block on boundary
+        crossings; returns the new length."""
+        self.reserve(self.length + 1)
+        self.length += 1
+        return self.length
+
+    def release(self) -> None:
+        """Free every owned block (idempotent)."""
+        if self.blocks:
+            self.allocator.free(self.blocks)
+            self.blocks = []
+
+    def as_list(self, max_blocks: int) -> List[int]:
+        """Dense table padded with the null block to ``max_blocks``."""
+        if len(self.blocks) > max_blocks:
+            raise ValueError(
+                f"sequence spans {len(self.blocks)} blocks > "
+                f"max_blocks_per_seq {max_blocks}"
+            )
+        return self.blocks + [NULL_BLOCK] * (max_blocks - len(self.blocks))
