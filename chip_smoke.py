@@ -7,11 +7,15 @@ Run from the root of a checkout, on a machine with one CUDA card and nvcc.
 It builds the port's CUDA kernels from ``ray_tpu_torch/csrc``, holds each
 kernel against its plain PyTorch version on the card at the serving path's
 shapes, runs the full-width Llama-2-7B forward through the flash kernel,
-and then drives the port's main path: an ``InferenceEngine`` serving
+and then drives the port's serving path: an ``InferenceEngine`` serving
 Llama-2-7B (random weights from a seed) through flash-attention prefill and
-paged-attention decode. Every phase prints one JSON object; any failure or
-missed tolerance raises (non-zero exit). The last two lines are the
-per-kernel summary and the result line read by automation:
+paged-attention decode. Then the training path: the flash-attention
+backward kernel against its plain version, gradients of a 4-layer GPT-J
+through flash against plain and fp32, and ``build_lm_train_step`` training
+GPT-J-6B at full width and depth for 5 AdamW steps on one fixed batch.
+Every phase prints one JSON object; any failure or missed tolerance raises
+(non-zero exit). The last two lines are the per-kernel summary and the
+result line read by automation:
 
     {"kernels": [...]}
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}
@@ -22,6 +26,7 @@ non-zero and prints no result.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import subprocess
@@ -75,10 +80,25 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_profile(fn, steps: int) -> dict:
+def kernel_category(name: str) -> str:
+    """The layer a device kernel belongs to, by its name."""
+    if "flash_bwd" in name or "bwd_delta" in name:
+        return "flash_bwd"
+    for key, cat in (("flash_fwd", "flash_fwd"), ("paged_", "paged"), ("nvjet", "gemm"),
+                     ("gemm", "gemm"), ("multi_tensor_apply", "foreach (optimizer, norms)"),
+                     ("Memcpy", "memcpy/memset"), ("Memset", "memcpy/memset")):
+        if key in name:
+            return cat
+    return "other (elementwise, reductions, copies)"
+
+
+def device_profile(fn, steps: int, count_ops=()) -> dict:
     """Wall time, device (kernel) time and the device's idle share per call
-    of ``fn`` under torch.profiler, with the kernels that took the most
-    device time. The profiler's own cost inflates the wall time."""
+    of ``fn`` under torch.profiler, device time by layer
+    (``kernel_category``), the kernels that took the most device time, the
+    device-side spans of user annotations (the optimizer's step), and how
+    often each host op named in ``count_ops`` ran. The profiler's own cost
+    inflates the wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -90,14 +110,28 @@ def device_profile(fn, steps: int) -> dict:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     by_name: dict = {}
+    spans: dict = {}
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / steps
+        if e.device_type != DeviceType.CUDA:
+            continue
+        # a user annotation spans the kernels it launched: kept apart, or
+        # their time would count twice
+        into = spans if e.is_user_annotation else by_name
+        into[e.name] = into.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / steps
     busy = sum(by_name.values())
+    by_cat: dict = {}
+    for name, ms in by_name.items():
+        by_cat[kernel_category(name)] = by_cat.get(kernel_category(name), 0.0) + ms
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    return {"wall_ms": wall_ms, "device_ms": busy if busy else "not measured",
-            "idle_share": 1 - busy / wall_ms if busy else "not measured",
-            "top_kernels_ms": [[name[:80], ms] for name, ms in top]}
+    out = {"wall_ms": wall_ms, "device_ms": busy if busy else "not measured",
+           "idle_share": 1 - busy / wall_ms if busy else "not measured",
+           "device_ms_by_layer": by_cat,
+           "top_kernels_ms": [[name[:80], ms] for name, ms in top]}
+    if spans:
+        out["annotation_spans_ms"] = spans
+    if count_ops:
+        out["op_counts"] = {op: sum(1 for e in prof.events() if e.name == op) for op in count_ops}
+    return out
 
 
 def bound(flops: float, nbytes: float):
@@ -181,6 +215,100 @@ def check_flash(name, b, s, h, kv, d, causal, gen):
     return row
 
 
+# Backward kernel against an fp32 oracle (the plain backward run in fp32
+# from the same bf16 values, with an fp32 forward). The kernel rounds P and
+# dS to bf16 before its tensor-core products, the plain backward keeps them
+# in fp32, so the kernel's error is held to BWD_NOISE times the plain
+# backward's own (both against the oracle; FlashAttention-2's convention),
+# per gradient, in relative Frobenius norm. A CPU emulation of those two
+# roundings measured 1.3-1.4x. BWD_CAP bounds ||kernel - plain|| / ||plain||
+# per gradient: the roundings give ~0.003 (bf16's relative step is 2**-8),
+# and a wrong index or mask gives O(1).
+BWD_NOISE, BWD_CAP = 2.0, 1e-2
+
+
+def rel_err(x: torch.Tensor, ref: torch.Tensor) -> float:
+    x, ref = x.float(), ref.float()
+    return ((x - ref).norm() / ref.norm()).item()
+
+
+def check_flash_bwd(name, b, s, h, kv, d, causal, gen):
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    from ray_tpu_torch.kernels.flash_attention import (
+        flash_attention,
+        flash_attention_backward,
+        flash_attention_backward_reference,
+        flash_attention_reference,
+    )
+
+    dev = "cuda"
+    q = torch.randn((b, s, h, d), generator=gen, device=dev).to(torch.bfloat16)
+    k = torch.randn((b, s, kv, d), generator=gen, device=dev).to(torch.bfloat16)
+    v = torch.randn((b, s, kv, d), generator=gen, device=dev).to(torch.bfloat16)
+    d_out = torch.randn((b, s, h, d), generator=gen, device=dev).to(torch.bfloat16)
+    out, lse = flash_attention(q, k, v, causal=causal)
+    args = (q, k, v, out, lse, d_out)
+    grads = flash_attention_backward(*args, causal=causal)
+    again = flash_attention_backward(*args, causal=causal)
+    torch.cuda.synchronize()
+    deterministic = all(torch.equal(x, y) for x, y in zip(grads, again))
+    plain = flash_attention_backward_reference(*args, causal=causal)
+    f32 = [x.float() for x in (q, k, v)]
+    out32, lse32 = flash_attention_reference(*f32, causal=causal)
+    exact = flash_attention_backward_reference(*f32, out32, lse32, d_out.float(), causal=causal)
+    del out32, lse32
+    errs = {}
+    for gname, g, p, e in zip(("dq", "dk", "dv"), grads, plain, exact):
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"flash bwd {name}: non-finite {gname}")
+        errs[gname] = dict(kernel_vs_fp32=rel_err(g, e), plain_vs_fp32=rel_err(p, e),
+                           kernel_vs_plain=rel_err(g, p),
+                           max_abs_err=(g.float() - p.float()).abs().max().item())
+    del exact, f32
+    ms = cuda_ms(lambda: flash_attention_backward(*args, causal=causal))
+    plain_ms = cuda_ms(lambda: flash_attention_backward_reference(*args, causal=causal), iters=3)
+    torch.cuda.empty_cache()
+    # the library's backward alone: autograd.grad over a retained graph, in
+    # BHSD with repeated kv heads made outside the timing
+    qt = q.transpose(1, 2).detach().requires_grad_()
+    kt, vt = (x.repeat_interleave(h // kv, dim=2).transpose(1, 2).detach().requires_grad_()
+              for x in (k, v))
+    ot = sdpa(qt, kt, vt, is_causal=causal)
+    dot = d_out.transpose(1, 2)
+    lib_ms = cuda_ms(lambda: torch.autograd.grad(ot, (qt, kt, vt), dot, retain_graph=True))
+    del ot, qt, kt, vt
+    pairs = b * h * (s * (s + 1) // 2 if causal else s * s)
+    flops = 10.0 * d * pairs  # five products of 2 * d operations per (query, key) pair
+    # read q, k, v, out, d_out and lse once; write dq, dk, dv once
+    nbytes = 2.0 * (3 * b * s * h * d + 2 * b * s * kv * d) + 4.0 * b * h * s \
+        + 2.0 * (b * s * h * d + 2 * b * s * kv * d)
+    bound_ms, bound_by = bound(flops, nbytes)
+    row = dict(case=name, shape=[b, s, h, kv, d], causal=causal, errors=errs,
+               deterministic=deterministic, tol=dict(noise=BWD_NOISE, cap=BWD_CAP),
+               max_abs_err=max(e["max_abs_err"] for e in errs.values()),
+               ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
+               bound_by=bound_by, tflops=flops / ms / 1e9)
+    log("kernel_flash_bwd", **row)
+    if not deterministic:
+        raise AssertionError(f"flash bwd {name}: two calls gave different gradients")
+    for gname, e in errs.items():
+        if e["kernel_vs_fp32"] > BWD_NOISE * e["plain_vs_fp32"] or e["kernel_vs_plain"] > BWD_CAP:
+            raise AssertionError(f"flash bwd {name}: {gname} beyond tolerance: {e}")
+    return row
+
+
+def phase_kernels_bwd():
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    return [
+        check_flash_bwd("gptj_causal_s2048", 1, 2048, 16, 16, 256, True, gen),
+        check_flash_bwd("llama_causal_s2048", 1, 2048, 32, 32, 128, True, gen),
+        check_flash_bwd("gqa_kv8_s1000", 1, 1000, 32, 8, 128, True, gen),
+        check_flash_bwd("d64_s300", 2, 300, 4, 4, 64, True, gen),
+        check_flash_bwd("full_s2048", 1, 2048, 32, 32, 128, False, gen),
+    ]
+
+
 def check_paged(name, contexts, h, kv, d, block_size, max_blocks, gen):
     from torch.nn.functional import scaled_dot_product_attention as sdpa
 
@@ -246,6 +374,7 @@ def phase_kernels():
         check_flash("d64_full_s300", 2, 300, 4, 2, 64, False, gen),
         check_flash("d256_s257", 1, 257, 4, 4, 256, True, gen),
         check_flash("d256_full_s130", 2, 130, 4, 2, 256, False, gen),
+        check_flash("gptj_causal_s2048", 1, 2048, 16, 16, 256, True, gen),
     ]
     # ragged contexts up to 4096 and one inactive slot (context 0)
     contexts = [4096, 1, 17, 1000, 2500, 0, 513, 3333]
@@ -345,7 +474,7 @@ def phase_decode_check(params, cfg, ecfg):
 
 def phase_serve(params, cfg, ecfg):
     """The main path: 12 greedy requests and one sampled, staggered."""
-    from ray_tpu_torch.kernels.flash_attention import flash_attention
+    from ray_tpu_torch.kernels.flash_attention import flash_attention, flash_attention_backward
     from ray_tpu_torch.kernels.paged_attention import paged_attention
     from ray_tpu_torch.serve.llm.engine import InferenceEngine
 
@@ -357,8 +486,8 @@ def phase_serve(params, cfg, ecfg):
     max_new = 32
     engine = InferenceEngine(params, cfg, ecfg, deployment="llama2-7b", device="cuda")
     try:
-        flash_attention.launches = 0
-        paged_attention.launches = 0
+        for kern in (flash_attention, paged_attention, flash_attention_backward):
+            kern.launches = 0
         t0 = time.perf_counter()
         streams = []
         for i, p in enumerate(prompts):
@@ -371,8 +500,8 @@ def phase_serve(params, cfg, ecfg):
         outs = [s.tokens() for s in streams]
         greedy_outs = [o for s, o in zip(streams, outs) if s is not sampled]
         wall = time.perf_counter() - t0
-        counts = {"flash_attention": flash_attention.launches,
-                  "paged_attention": paged_attention.launches}
+        counts = {kern.__name__: kern.launches
+                  for kern in (flash_attention, paged_attention, flash_attention_backward)}
         stats = engine.kv_stats()
     finally:
         engine.shutdown()
@@ -384,6 +513,8 @@ def phase_serve(params, cfg, ecfg):
     if counts["flash_attention"] != n_req * cfg.n_layers:
         raise AssertionError(f"flash launches {counts['flash_attention']} != one per layer "
                              f"of each of {n_req} prefills")
+    if counts["flash_attention_backward"]:
+        raise AssertionError(f"serving launched the backward kernel: {counts}")
     steps = counts["paged_attention"] / cfg.n_layers
     if steps != int(steps) or steps < max_new - 1:
         raise AssertionError(f"paged launches {counts['paged_attention']} are not one per "
@@ -419,6 +550,139 @@ def phase_first_tokens(params, cfg, prompts, outs):
         worst_gap=worst_gap, tol=TOP2_GAP)
 
 
+# Gradients through the whole model, flash against plain: both bf16 paths
+# differ from an fp32 run of the same weights by bf16 roundings that the
+# layers carry along; the flash path's only extra roundings are the
+# kernels' P and dS, which the plain path makes too in its bf16 products
+# (a CPU emulation measured the two equally far from fp32). Per parameter,
+# the flash gradient may stray from fp32 no further than TRAIN_NOISE times
+# the plain one does (relative Frobenius norm).
+TRAIN_NOISE = 1.5
+
+
+def _value_and_grads(params, tokens, targets, cfg, use_flash):
+    from ray_tpu_torch.models.transformer import loss_fn
+
+    leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
+    loss = loss_fn(leaves, tokens, targets, cfg, use_flash=use_flash)
+    loss.backward()
+    return loss.item(), {k: v.grad for k, v in leaves.items() if v.grad is not None}
+
+
+def phase_train_check():
+    """Full-width GPT-J at 4 layers (bench.py's cut), B=1, S=2048."""
+    import dataclasses
+
+    import numpy as np
+
+    from ray_tpu_torch.kernels.flash_attention import flash_attention, flash_attention_backward
+    from ray_tpu_torch.models.transformer import GPTJ_6B, init_params
+
+    cfg = dataclasses.replace(GPTJ_6B, n_layers=4)
+    params = init_params(torch.Generator(device="cuda").manual_seed(3), cfg, device="cuda")
+    tokens = np.random.default_rng(1).integers(0, cfg.vocab_size - 1, (1, 2048), dtype=np.int64)
+    tok = torch.from_numpy(tokens).cuda()
+    tgt = torch.roll(tok, -1, 1)
+    before = (flash_attention.launches, flash_attention_backward.launches)
+    loss_flash, g_flash = _value_and_grads(params, tok, tgt, cfg, True)
+    launches = [flash_attention.launches - before[0], flash_attention_backward.launches - before[1]]
+    loss_plain, g_plain = _value_and_grads(params, tok, tgt, cfg, False)
+    params32 = {k: v.float() for k, v in params.items()}
+    del params
+    loss_32, g_32 = _value_and_grads(params32, tok, tgt,
+                                     dataclasses.replace(cfg, dtype=torch.float32), True)
+    del params32
+    errs = {k: {"flash_vs_fp32": rel_err(g_flash[k], g_32[k]),
+                "plain_vs_fp32": rel_err(g_plain[k], g_32[k]),
+                "flash_vs_plain": rel_err(g_flash[k], g_plain[k])} for k in sorted(g_32)}
+    finite = all(torch.isfinite(g).all().item() for g in g_flash.values())
+    del g_flash, g_plain, g_32
+    torch.cuda.empty_cache()
+    row = dict(config="GPTJ_6B, n_layers=4", tokens=[1, 2048], remat=cfg.remat,
+               loss_flash=loss_flash, loss_plain=loss_plain, loss_fp32=loss_32,
+               flash_launches=launches, grad_errors=errs, tol=TRAIN_NOISE)
+    log("train_check", **row)
+    if launches != [2 * cfg.n_layers, cfg.n_layers]:
+        raise AssertionError(f"train_check: flash launches fwd/bwd {launches}, want "
+                             f"{[2 * cfg.n_layers, cfg.n_layers]} (remat recomputes the forward)")
+    if not finite or not all(math.isfinite(x) for x in (loss_flash, loss_plain, loss_32)):
+        raise AssertionError("train_check: non-finite loss or gradient")
+    bad = {k: e for k, e in errs.items() if e["flash_vs_fp32"] > TRAIN_NOISE * e["plain_vs_fp32"]}
+    if bad:
+        raise AssertionError(f"train_check: flash gradients beyond {TRAIN_NOISE}x plain: {bad}")
+
+
+def phase_train(smi, steps: int = 5):
+    """The training path: build_lm_train_step(GPTJ_6B) at full width and
+    depth, AdamW, `steps` steps on one fixed batch, then one more under
+    the profiler."""
+    import numpy as np
+
+    from ray_tpu_torch.kernels.flash_attention import flash_attention, flash_attention_backward
+    from ray_tpu_torch.kernels.paged_attention import paged_attention
+    from ray_tpu_torch.models.transformer import GPTJ_6B
+    from ray_tpu_torch.parallel.spmd import build_lm_train_step
+
+    cfg = GPTJ_6B
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    bundle = build_lm_train_step(cfg, learning_rate=1e-4)
+    state = bundle.init_state(0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    batch, seq = 1, 2048
+    rng = np.random.default_rng(0)
+    tokens = rng.integers(0, cfg.vocab_size - 1, (batch, seq), dtype=np.int32)
+    tok, tgt = bundle.shard_batch(tokens, np.roll(tokens, -1, axis=1))
+
+    kernels = (flash_attention, flash_attention_backward, paged_attention)
+    for kern in kernels:
+        kern.launches = 0
+    losses, norms, step_ms, per_step = [], [], [], []
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    for _ in range(steps):
+        before = [kern.launches for kern in kernels]
+        start.record()
+        state, metrics = bundle.step_fn(state, tok, tgt)
+        end.record()
+        torch.cuda.synchronize()
+        step_ms.append(start.elapsed_time(end))
+        losses.append(metrics["loss"].item())
+        norms.append(metrics["grad_norm"].item())
+        per_step.append([kern.launches - b for kern, b in zip(kernels, before)])
+    counts = {kern.__name__: kern.launches for kern in kernels}
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    capacity_gib = torch.cuda.get_device_properties(0).total_memory / 2**30
+    profile = device_profile(lambda: bundle.step_fn(state, tok, tgt), steps=1,
+                             count_ops=("aten::select_backward", "aten::zeros"))
+    n_params = cfg.num_params()
+    steady_ms = sum(step_ms[1:]) / max(len(step_ms) - 1, 1)
+    tokens_per_s = batch * seq / (steady_ms / 1e3)
+    mfu = 6 * n_params * tokens_per_s / PEAK_BF16_FLOPS
+    row = dict(config="GPTJ_6B", params=n_params, tokens=[batch, seq], remat=cfg.remat,
+               optimizer="AdamW(lr=1e-4, betas=(0.9, 0.999), eps=1e-8, weight_decay=0.01)",
+               init_s=init_s, losses=losses, grad_norms=norms, step_ms=step_ms,
+               steady_step_ms=steady_ms, tokens_per_s=tokens_per_s, mfu=mfu,
+               mfu_rule="6 * params * tokens/s / 989e12 (bench.py)", peak_gib=peak_gib,
+               capacity_gib=capacity_gib, card=smi, launches_per_step=per_step,
+               launches=counts, profiled_step=profile)
+    log("train", **row)
+    want = [2 * cfg.n_layers, cfg.n_layers, 0]
+    if any(p != want for p in per_step):
+        raise AssertionError(f"train: launches per step {per_step}, want {want} each "
+                             f"(flash forward twice per layer under remat, backward once)")
+    if not all(math.isfinite(x) for x in losses + norms):
+        raise AssertionError(f"train: non-finite loss or grad_norm: {losses} {norms}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"train: loss did not fall on one fixed batch: {losses}")
+    if peak_gib >= capacity_gib:
+        raise AssertionError(f"train: peak {peak_gib} GiB not under capacity {capacity_gib} GiB")
+    if profile.get("op_counts", {}).get("aten::select_backward", 0):
+        raise AssertionError(f"train: select_backward ran in a step: {profile['op_counts']}")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -441,27 +705,46 @@ def main() -> int:
     torch.cuda.synchronize()
     log("weights", config="LLAMA2_7B", params=cfg.num_params(), seconds=time.perf_counter() - t0,
         gib=sum(p.numel() * p.element_size() for p in params.values()) / 2**30)
-    phase_forward(params, cfg)
+    with torch.inference_mode():
+        phase_forward(params, cfg)
     ecfg = EngineConfig(block_size=16, num_blocks=1025, max_batch=8, max_blocks_per_seq=256)
     phase_decode_check(params, cfg, ecfg)
     torch.cuda.empty_cache()
     prompts, outs, counts = phase_serve(params, cfg, ecfg)
-    phase_first_tokens(params, cfg, prompts, outs)
-    log("total", seconds=time.perf_counter() - t_start,
+    with torch.inference_mode():
+        phase_first_tokens(params, cfg, prompts, outs)
+    log("serve_total", seconds=time.perf_counter() - t_start,
         peak_gib=torch.cuda.max_memory_allocated() / 2**30)
 
-    def entry(name, source, replaces, row):
-        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                "launches": counts[name], "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+    # the training phases need the card's memory: drop the serving model
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    bwd_rows = phase_kernels_bwd()
+    phase_train_check()
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_counts = phase_train(smi)
+    log("total", seconds=time.perf_counter() - t_start)
+
+    def entry(name, source, row, launches):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": "ray_tpu/ops/attention.py:124" if name.startswith("flash")
+                else "ray_tpu/models/generation.py:187",
+                "launches": launches, "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                 "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                 "bound_by": row["bound_by"], "library_ms": row["library_ms"]}
 
     print(smi)
+    # launches: the serving run for the serving kernels, the training run
+    # for the backward
     print(json.dumps({"kernels": [
-        entry("flash_attention", "ray_tpu_torch/csrc/flash_attention.cu",
-              "ray_tpu/ops/attention.py:124", flash_rows[0]),
-        entry("paged_attention", "ray_tpu_torch/csrc/paged_attention.cu",
-              "ray_tpu/models/generation.py:187", paged_rows[0]),
+        entry("flash_attention", "ray_tpu_torch/csrc/flash_attention.cu", flash_rows[0],
+              counts["flash_attention"]),
+        entry("paged_attention", "ray_tpu_torch/csrc/paged_attention.cu", paged_rows[0],
+              counts["paged_attention"]),
+        entry("flash_attention_bwd", "ray_tpu_torch/csrc/flash_attention_bwd.cu", bwd_rows[0],
+              train_counts["flash_attention_backward"]),
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -6,13 +6,18 @@ outputs on the same inputs and weights. It imports ``torch`` and nothing of
 JAX or ``ray_tpu``. Entry points run on the card (``device="cuda"``) unless
 the caller asks for the CPU.
 
-Two hand-written CUDA kernels carry the serving path: flash attention
-(prefill and ``forward``) and paged attention (decode); see
-``ray_tpu_torch.kernels``.
+Hand-written CUDA kernels carry the main paths: flash attention (prefill,
+``forward`` and, with its backward kernel, training) and paged attention
+(decode); see ``ray_tpu_torch.kernels``. The training step is
+``ray_tpu_torch.parallel.spmd.build_lm_train_step``.
 """
 
 from ray_tpu_torch._device import resolve_device
-from ray_tpu_torch.kernels.flash_attention import flash_attention
+from ray_tpu_torch.kernels.flash_attention import (
+    FlashAttention,
+    flash_attention,
+    flash_attention_backward,
+)
 from ray_tpu_torch.kernels.paged_attention import paged_attention
 from ray_tpu_torch.models.generation import (
     init_paged_pool,
@@ -27,6 +32,8 @@ from ray_tpu_torch.models.transformer import (
     TransformerConfig,
     forward,
     init_params,
+    loss_fn,
+    param_logical_axes,
 )
 from ray_tpu_torch.ops.attention import attention
 from ray_tpu_torch.ops.layers import (
@@ -58,6 +65,7 @@ __all__ = [
     "BlockTable",
     "DeploymentOverloadedError",
     "EngineConfig",
+    "FlashAttention",
     "InferenceEngine",
     "KVCacheExhausted",
     "TokenStream",
@@ -65,13 +73,16 @@ __all__ = [
     "apply_rope",
     "attention",
     "flash_attention",
+    "flash_attention_backward",
     "forward",
     "gelu",
     "init_paged_pool",
     "init_params",
     "layer_norm",
+    "loss_fn",
     "make_paged_fns",
     "paged_attention",
+    "param_logical_axes",
     "params_from_jax",
     "resolve_device",
     "rms_norm",

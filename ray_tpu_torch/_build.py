@@ -38,6 +38,12 @@ SIGNATURES: Dict[str, tuple] = {
         "flash_attention",
         [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
     ),
+    # q, k, v, out, lse, d_out, delta, dq, dk, dv, B, Sq, Sk, H, KV, D,
+    # causal, scale, stream
+    "flash_attention_bwd": (
+        "flash_attention_bwd",
+        [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    ),
     # q, k_pool, v_pool, block_tables, positions, out, partial_o, partial_ml,
     # B, H, KV, D, max_blocks, block_size, num_blocks, n_splits, scale, stream
     "paged_attention_decode": (
@@ -90,7 +96,9 @@ def _finish(name: str, started) -> str:
     return log
 
 
-def build_all(names: Sequence[str] = ("flash_attention", "paged_attention")) -> Dict[str, str]:
+def build_all(
+    names: Sequence[str] = ("flash_attention", "flash_attention_bwd", "paged_attention"),
+) -> Dict[str, str]:
     """Compile every named source that is not built yet, all at once; returns
     nvcc's output per source."""
     with _lock:

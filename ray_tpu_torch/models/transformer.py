@@ -6,19 +6,30 @@ weights carry over from JAX with no renaming (``ray_tpu_torch.weights``):
 ``wq (L,D,H,Hd)``, ``wk/wv (L,D,KV,Hd)``, ``wo (L,H,Hd,D)``, ``w_up/w_gate
 (L,D,F)``, ``w_down (L,F,D)``, ``attn_norm/mlp_norm (L,D)`` in fp32,
 ``final_norm (D,)``, ``embed (V,D)``, ``unembed (D,V)``. The reference's
-``lax.scan`` over stacked layers is a Python loop over the layer index.
+``lax.scan`` over stacked layers is a Python loop over the layer index; a
+stacked entry may also be a sequence of per-layer tensors (the training
+step's per-layer leaves, ``ray_tpu_torch.parallel.spmd``).
 
-``remat`` is a training concern (activation checkpointing for the backward
-pass); this forward keeps the field for parity and ignores it.
+``forward`` and ``loss_fn`` are differentiable. ``remat`` checkpoints each
+block when gradients are being recorded, as the reference's
+``jax.checkpoint`` does: ``True`` recomputes the whole block in the
+backward pass, ``remat_policy="dots"`` saves the outputs of the projection
+GEMMs (products with no batch dimension) and recomputes the rest.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from ray_tpu_torch._device import resolve_device
 from ray_tpu_torch.ops.attention import attention
@@ -41,7 +52,8 @@ class TransformerConfig:
     use_swiglu: bool = True  # False = gelu MLP (GPT-J)
     tie_embeddings: bool = False
     dtype: torch.dtype = torch.bfloat16
-    remat: bool = True  # kept for parity with the reference; ignored by forward
+    remat: bool = True  # checkpoint each block while recording gradients
+    # None = full recompute; "dots" saves the projection GEMMs' outputs
     remat_policy: Optional[str] = None
 
     @property
@@ -144,11 +156,34 @@ def init_params(
     return params
 
 
+def param_logical_axes(cfg: TransformerConfig) -> Dict[str, Tuple]:
+    """Logical sharding axes per parameter (the reference's, for the
+    multi-GPU slice's sharding rules)."""
+    axes = {
+        "embed": ("vocab", "embed"),
+        "wq": ("layers", "embed", "heads", "head_dim"),
+        "wk": ("layers", "embed", "kv_heads", "head_dim"),
+        "wv": ("layers", "embed", "kv_heads", "head_dim"),
+        "wo": ("layers", "heads", "head_dim", "embed"),
+        "attn_norm": ("layers", "norm"),
+        "mlp_norm": ("layers", "norm"),
+        "w_up": ("layers", "embed", "mlp"),
+        "w_down": ("layers", "mlp", "embed"),
+        "final_norm": ("norm",),
+    }
+    if cfg.use_swiglu:
+        axes["w_gate"] = ("layers", "embed", "mlp")
+    if not cfg.tie_embeddings:
+        axes["unembed"] = ("embed", "vocab")
+    return axes
+
+
+UNSTACKED = ("embed", "unembed", "final_norm")  # every other parameter is per layer
+
+
 def layer_params(params: Params, li: int) -> Params:
     """Layer ``li``'s slice of every stacked parameter."""
-    return {
-        k: v[li] for k, v in params.items() if k not in ("embed", "unembed", "final_norm")
-    }
+    return {k: v[li] for k, v in params.items() if k not in UNSTACKED}
 
 
 def mlp(cfg: TransformerConfig, layer: Params, m: torch.Tensor) -> torch.Tensor:
@@ -198,7 +233,30 @@ def unembed(params: Params, x: torch.Tensor) -> torch.Tensor:
     return torch.einsum("bsd,dv->bsv", x, w)
 
 
-@torch.no_grad()
+def _dots_policy(ctx, op, *args, **kwargs):
+    """Selective checkpointing's counterpart of the reference's
+    ``dots_with_no_batch_dims_saveable``: ``torch.einsum`` runs every
+    product as a ``bmm``, a projection with a batch of 1 and attention's
+    products with a batch of B*H, so save the former and recompute the
+    rest (attention and the flash kernel's output included)."""
+    if op is torch.ops.aten.mm.default or (
+        op is torch.ops.aten.bmm.default and args[0].shape[0] == 1
+    ):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(cfg: TransformerConfig, fn, *args):
+    if not (cfg.remat and torch.is_grad_enabled()):
+        return fn(*args)
+    if cfg.remat_policy == "dots":
+        return checkpoint(
+            fn, *args, use_reentrant=False,
+            context_fn=functools.partial(create_selective_checkpoint_contexts, _dots_policy),
+        )
+    return checkpoint(fn, *args, use_reentrant=False)
+
+
 def forward(
     params: Params,
     tokens: torch.Tensor,
@@ -210,11 +268,40 @@ def forward(
     """tokens (B, S) -> logits (B, S, vocab), on the parameters' device.
     ``positions`` (B, S) feeds the rotary embedding. ``use_flash=False``
     routes attention through the plain einsum version, the reference that
-    the flash kernel is checked against on the card."""
+    the flash kernel is checked against on the card. Differentiable; see
+    the module note for ``cfg.remat``."""
     dev = params["embed"].device
     tokens = torch.as_tensor(tokens, device=dev)
     x = params["embed"][tokens]
     cos, sin = rope_frequencies(cfg.head_dim, cfg.max_seq_len, cfg.rope_theta, device=dev)
+
+    def block(x, layer):
+        return _block(cfg, x, layer, cos, sin, positions, use_flash)
+
     for li in range(cfg.n_layers):
-        x = _block(cfg, x, layer_params(params, li), cos, sin, positions, use_flash)
+        x = _remat(cfg, block, x, layer_params(params, li))
     return unembed(params, x)
+
+
+def loss_fn(
+    params: Params,
+    tokens: torch.Tensor,
+    targets: torch.Tensor,
+    cfg: TransformerConfig,
+    *,
+    positions: Optional[torch.Tensor] = None,
+    loss_mask: Optional[torch.Tensor] = None,
+    use_flash: bool = True,
+) -> torch.Tensor:
+    """Mean next-token cross-entropy in fp32: logsumexp of the fp32 logits
+    minus the gold logit, averaged over all tokens or, with ``loss_mask``,
+    over the masked-in ones (at least one)."""
+    logits = forward(params, tokens, cfg, positions=positions, use_flash=use_flash).float()
+    targets = torch.as_tensor(targets, device=logits.device).long()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets[..., None]).squeeze(-1)
+    nll = logz - gold
+    if loss_mask is not None:
+        mask = torch.as_tensor(loss_mask, device=logits.device).to(nll.dtype)
+        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return nll.mean()

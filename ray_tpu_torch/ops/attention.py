@@ -18,7 +18,7 @@ from typing import Optional
 
 import torch
 
-from ray_tpu_torch.kernels.flash_attention import HEAD_DIMS, flash_attention
+from ray_tpu_torch.kernels.flash_attention import HEAD_DIMS, FlashAttention
 
 _NEG_INF = -1e30
 
@@ -51,8 +51,9 @@ def attention(
     kv_positions: Optional[torch.Tensor] = None,
     use_flash: bool = True,
 ) -> torch.Tensor:
-    """Multi-head attention: the flash kernel where it applies (see the
-    module note), else the einsum softmax."""
+    """Multi-head attention: the flash kernels where they apply (see the
+    module note), else the einsum softmax. Both branches are
+    differentiable."""
     if (
         use_flash
         and mask is None
@@ -60,8 +61,10 @@ def attention(
         and kv_positions is None
         and flash_eligible(q, k, v)
     ):
-        # the kernel indexes kv heads itself; no repeated copy
-        return flash_attention(q, k, v, causal=causal)[0]
+        # the kernels index kv heads themselves; no repeated copy. The
+        # autograd function makes the branch differentiable (the backward
+        # kernel); without gradients it launches the forward alone.
+        return FlashAttention.apply(q, k, v, causal)[0]
     n_rep = q.shape[2] // k.shape[2]
     k = _repeat_kv(k, n_rep)
     v = _repeat_kv(v, n_rep)

@@ -11,7 +11,12 @@ import numpy as np
 import pytest
 import torch
 
-from ray_tpu_torch.kernels.flash_attention import flash_attention, flash_attention_reference
+from ray_tpu_torch.kernels.flash_attention import (
+    flash_attention,
+    flash_attention_backward,
+    flash_attention_backward_reference,
+    flash_attention_reference,
+)
 from ray_tpu_torch.kernels.paged_attention import paged_attention, paged_attention_reference
 
 
@@ -123,3 +128,154 @@ def test_engine_continuous_matches_isolated_on_card(cuda):
     finally:
         eng.shutdown()
     assert together == alone
+
+
+# The backward kernel rounds P and dS to bf16 before its products; the
+# plain backward keeps them in fp32. Per gradient, in relative Frobenius
+# norm: the kernel may stray from an fp32 run no further than BWD_NOISE
+# times the plain backward does (FlashAttention-2's convention), and from
+# the plain backward no further than BWD_CAP (the roundings give ~0.003;
+# a wrong index or mask gives O(1)). chip_smoke.py holds the same rule.
+BWD_NOISE, BWD_CAP = 2.0, 1e-2
+
+
+def _rel(x, ref):
+    return ((x.float() - ref.float()).norm() / ref.float().norm()).item()
+
+
+def _bwd_case(cuda, b, s, h, kv, d, causal, seed=0):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    q = torch.randn((b, s, h, d), generator=gen, device=cuda).bfloat16()
+    k = torch.randn((b, s, kv, d), generator=gen, device=cuda).bfloat16()
+    v = torch.randn((b, s, kv, d), generator=gen, device=cuda).bfloat16()
+    d_out = torch.randn((b, s, h, d), generator=gen, device=cuda).bfloat16()
+    out, lse = flash_attention(q, k, v, causal=causal)
+    return q, k, v, out, lse, d_out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "b,s,h,kv,d,causal",
+    [
+        (1, 2048, 16, 16, 256, True),  # GPT-J
+        (1, 2048, 32, 32, 128, True),  # Llama-2-7B
+        (1, 1000, 32, 8, 128, True),  # grouped-query, ragged
+        (2, 300, 4, 4, 64, True),
+        (1, 2048, 32, 32, 128, False),
+        (2, 130, 4, 2, 256, False),
+    ],
+)
+def test_flash_backward_kernel_matches_plain_on_card(cuda, b, s, h, kv, d, causal):
+    args = _bwd_case(cuda, b, s, h, kv, d, causal)
+    before = flash_attention_backward.launches
+    grads = flash_attention_backward(*args, causal=causal)
+    assert flash_attention_backward.launches == before + 1
+    plain = flash_attention_backward_reference(*args, causal=causal)
+    q, k, v, _, _, d_out = args
+    f32 = [x.float() for x in (q, k, v)]
+    out32, lse32 = flash_attention_reference(*f32, causal=causal)
+    exact = flash_attention_backward_reference(*f32, out32, lse32, d_out.float(), causal=causal)
+    for name, g, p, e in zip(("dq", "dk", "dv"), grads, plain, exact):
+        assert g.shape == p.shape and g.dtype == torch.bfloat16, name
+        assert torch.isfinite(g).all(), name
+        assert _rel(g, e) <= BWD_NOISE * _rel(p, e), name
+        assert _rel(g, p) <= BWD_CAP, name
+
+
+@pytest.mark.gpu
+def test_flash_backward_kernel_is_deterministic(cuda):
+    args = _bwd_case(cuda, 1, 1000, 32, 8, 128, True, seed=1)
+    first = flash_attention_backward(*args)
+    second = flash_attention_backward(*args)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.gpu
+def test_flash_backward_rejects_what_it_does_not_take(cuda):
+    q, k, v, out, lse, d_out = _bwd_case(cuda, 1, 64, 2, 2, 64, True)
+    with pytest.raises(ValueError):  # fp32
+        flash_attention_backward(q.float(), k.float(), v.float(), out.float(), lse, d_out.float())
+    x = torch.zeros((1, 8, 2, 96), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):  # head_dim 96
+        flash_attention_backward(x, x, x, x, torch.zeros((1, 2, 8), device=cuda), x)
+    with pytest.raises(ValueError):  # d_out on the CPU
+        flash_attention_backward(q, k, v, out, lse, d_out.cpu())
+
+
+@pytest.mark.gpu
+def test_train_step_flash_matches_plain_on_card(cuda, monkeypatch):
+    """One step_fn step of a small bf16 config through the kernels, against
+    the same step with attention on the plain path and an fp32 step: the
+    flash gradients stray from fp32 no further than 1.5x the plain ones
+    (chip_smoke.py's TRAIN_NOISE), over all parameters together."""
+    import dataclasses
+
+    import ray_tpu_torch.ops.attention as attention_mod
+    from ray_tpu_torch.models.transformer import TransformerConfig, init_params
+    from ray_tpu_torch.parallel.spmd import build_lm_train_step, flat_leaves
+
+    cfg = TransformerConfig(vocab_size=512, d_model=512, n_layers=2, n_heads=4, d_ff=1024,
+                            max_seq_len=512, parallel_block=True, use_swiglu=False)
+    tokens = torch.from_numpy(np.random.RandomState(0).randint(0, 512, (2, 512))).to(cuda)
+    targets = torch.roll(tokens, -1, 1)
+
+    def step_grads(dtype, flash):
+        c = dataclasses.replace(cfg, dtype=dtype)
+        params = init_params(torch.Generator(device=cuda).manual_seed(0), c, device=cuda)
+        bundle = build_lm_train_step(c, device=cuda)
+        state = bundle.state_from_params(params)
+        with monkeypatch.context() as m:
+            if not flash:
+                m.setattr(attention_mod, "flash_eligible", lambda *a: False)
+            before = flash_attention_backward.launches
+            state, metrics = bundle.step_fn(state, tokens, targets)
+            launched = flash_attention_backward.launches - before
+        assert torch.isfinite(metrics["loss"]) and torch.isfinite(metrics["grad_norm"])
+        grads = torch.cat([p.grad.float().flatten() for p in flat_leaves(state["opt"].leaves)])
+        return grads, launched
+
+    g_flash, launched = step_grads(torch.bfloat16, True)
+    assert launched == cfg.n_layers
+    g_plain, launched = step_grads(torch.bfloat16, False)
+    assert launched == 0
+    g_32, _ = step_grads(torch.float32, True)
+    assert _rel(g_flash, g_32) <= 1.5 * _rel(g_plain, g_32)
+
+
+@pytest.mark.gpu
+def test_remat_modes_through_the_kernels_give_identical_gradients(cuda):
+    """remat False, True and "dots" (selective checkpointing around the
+    flash autograd function) give the same gradients on the card: the
+    recomputed forward repeats the same kernels on the same inputs."""
+    import dataclasses
+
+    from ray_tpu_torch.models.transformer import TransformerConfig, init_params, loss_fn
+
+    cfg = TransformerConfig(vocab_size=512, d_model=512, n_layers=2, n_heads=4, d_ff=1024,
+                            max_seq_len=256, parallel_block=True, use_swiglu=False)
+    params = init_params(torch.Generator(device=cuda).manual_seed(1), cfg, device=cuda)
+    tokens = torch.from_numpy(np.random.RandomState(1).randint(0, 512, (2, 256))).to(cuda)
+    results = []
+    for remat, policy in ((False, None), (True, None), (True, "dots")):
+        leaves = {k: v.detach().clone().requires_grad_() for k, v in params.items()}
+        before = flash_attention.launches
+        loss = loss_fn(leaves, tokens, torch.roll(tokens, -1, 1),
+                       dataclasses.replace(cfg, remat=remat, remat_policy=policy))
+        loss.backward()
+        # the forward runs again in the backward pass whenever a block is checkpointed
+        assert flash_attention.launches - before == cfg.n_layers * (2 if remat else 1)
+        results.append({k: v.grad for k, v in leaves.items() if v.grad is not None})
+    for grads in results[1:]:
+        for k in results[0]:
+            assert torch.equal(grads[k], results[0][k]), k
+
+
+@pytest.mark.gpu
+def test_entry_runs_on_card(cuda):
+    from ray_tpu_torch.entry import entry
+
+    fn, (params, tokens) = entry()
+    assert tokens.device.type == "cuda"
+    with torch.inference_mode():
+        logits = fn(params, tokens)
+    assert logits.shape == (2, 256, 50432) and torch.isfinite(logits.float()).all()
