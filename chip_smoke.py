@@ -4,7 +4,9 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout, on a machine with one CUDA card and nvcc.
-It builds the port's CUDA kernels from ``ray_tpu_torch/csrc``, holds each
+It builds the port's CUDA kernels from ``ray_tpu_torch/csrc``, shows with
+``cuobjdump -sass`` that the flash libraries hold wgmma (HGMMA) and TMA
+(UTMALDG) instructions, holds each
 kernel against its plain PyTorch version on the card at the serving path's
 shapes, runs the full-width Llama-2-7B forward through the flash kernel,
 and then drives the port's serving path: an ``InferenceEngine`` serving
@@ -134,6 +136,13 @@ def device_profile(fn, steps: int, count_ops=()) -> dict:
     return out
 
 
+def kernel_split(fn, keys: dict, steps: int = 5) -> dict:
+    """Device ms per call of ``fn`` for each kernel whose name holds one of
+    ``keys``' values (``device_profile``'s top kernels)."""
+    top = device_profile(fn, steps)["top_kernels_ms"]
+    return {name: sum(ms for kernel, ms in top if key in kernel) for name, key in keys.items()}
+
+
 def bound(flops: float, nbytes: float):
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
@@ -179,6 +188,50 @@ def phase_build() -> None:
     log("build", seconds=secs, sources=sorted(logs))
 
 
+def _cuobjdump() -> str:
+    """cuobjdump beside nvcc, else the copy in Triton's package."""
+    from pathlib import Path
+
+    from ray_tpu_torch import _build
+
+    tool = Path(_build._nvcc()).parent / "cuobjdump"
+    if tool.exists():
+        return str(tool)
+    try:
+        import triton
+    except ImportError as e:
+        raise RuntimeError("sass: no cuobjdump beside nvcc and no triton package") from e
+    tool = Path(triton.__file__).parent / "backends" / "nvidia" / "bin" / "cuobjdump"
+    if not tool.exists():
+        raise RuntimeError(f"sass: no cuobjdump beside nvcc nor at {tool}")
+    return str(tool)
+
+
+# SASS opcodes: warpgroup matrix multiply, and the two asynchronous tile
+# copies (TMA, cp.async)
+SASS_OPS = ("HGMMA", "UTMALDG", "LDGSTS")
+
+
+def phase_sass() -> dict:
+    """What the redesigned libraries were compiled to: each must hold
+    HGMMA (wgmma) and an asynchronous tile copy (UTMALDG or LDGSTS)."""
+    from ray_tpu_torch import _build
+
+    tool = _cuobjdump()
+    counts = {}
+    for name in ("flash_attention", "flash_attention_bwd"):
+        sass = subprocess.run([tool, "-sass", str(_build.library_path(name))],
+                              capture_output=True, text=True, check=True, timeout=300).stdout
+        counts[name] = {op: sum(1 for line in sass.splitlines() if op in line) for op in SASS_OPS}
+    log("sass", cuobjdump=tool, counts=counts)
+    for name, c in counts.items():
+        if not c["HGMMA"]:
+            raise AssertionError(f"sass: no HGMMA in {name}: {c}")
+        if not (c["UTMALDG"] or c["LDGSTS"]):
+            raise AssertionError(f"sass: no asynchronous tile copy in {name}: {c}")
+    return counts
+
+
 def check_flash(name, b, s, h, kv, d, causal, gen):
     from torch.nn.functional import scaled_dot_product_attention as sdpa
 
@@ -210,7 +263,8 @@ def check_flash(name, b, s, h, kv, d, causal, gen):
     bound_ms, bound_by = bound(flops, nbytes)
     row = dict(case=name, shape=[b, s, h, kv, d], causal=causal, max_abs_err=err,
                lse_err=lse_err, tol=TOL_RULE, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-               bound_ms=bound_ms, bound_by=bound_by, tflops=flops / ms / 1e9)
+               bound_ms=bound_ms, bound_by=bound_by, tflops=flops / ms / 1e9,
+               vs_library=ms / lib_ms)
     log("kernel_flash", **row)
     return row
 
@@ -267,6 +321,8 @@ def check_flash_bwd(name, b, s, h, kv, d, causal, gen):
                            max_abs_err=(g.float() - p.float()).abs().max().item())
     del exact, f32
     ms = cuda_ms(lambda: flash_attention_backward(*args, causal=causal))
+    split = kernel_split(lambda: flash_attention_backward(*args, causal=causal),
+                         {"delta": "bwd_delta", "dkv": "flash_bwd_dkv", "dq": "flash_bwd_dq"})
     plain_ms = cuda_ms(lambda: flash_attention_backward_reference(*args, causal=causal), iters=3)
     torch.cuda.empty_cache()
     # the library's backward alone: autograd.grad over a retained graph, in
@@ -287,8 +343,9 @@ def check_flash_bwd(name, b, s, h, kv, d, causal, gen):
     row = dict(case=name, shape=[b, s, h, kv, d], causal=causal, errors=errs,
                deterministic=deterministic, tol=dict(noise=BWD_NOISE, cap=BWD_CAP),
                max_abs_err=max(e["max_abs_err"] for e in errs.values()),
-               ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
-               bound_by=bound_by, tflops=flops / ms / 1e9)
+               ms=ms, kernel_ms=split, plain_ms=plain_ms, library_ms=lib_ms,
+               bound_ms=bound_ms, bound_by=bound_by, tflops=flops / ms / 1e9,
+               vs_library=ms / lib_ms)
     log("kernel_flash_bwd", **row)
     if not deterministic:
         raise AssertionError(f"flash bwd {name}: two calls gave different gradients")
@@ -356,7 +413,8 @@ def check_paged(name, contexts, h, kv, d, block_size, max_blocks, gen):
     bound_ms, bound_by = bound(flops, nbytes)
     row = dict(case=name, contexts=contexts, heads=[h, kv, d], block_size=block_size,
                max_abs_err=err, tol=TOL_RULE, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-               bound_ms=bound_ms, bound_by=bound_by, gbps=nbytes / ms / 1e6)
+               bound_ms=bound_ms, bound_by=bound_by, gbps=nbytes / ms / 1e6,
+               vs_library=ms / lib_ms)
     log("kernel_paged", **row)
     return row
 
@@ -697,6 +755,7 @@ def main() -> int:
     t_start = time.perf_counter()
     smi = phase_card()
     phase_build()
+    phase_sass()
     flash_rows, paged_rows = phase_kernels()
 
     cfg = LLAMA2_7B
@@ -733,7 +792,8 @@ def main() -> int:
                 else "ray_tpu/models/generation.py:187",
                 "launches": launches, "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                 "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-                "bound_by": row["bound_by"], "library_ms": row["library_ms"]}
+                "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+                "vs_library": row["vs_library"]}
 
     print(smi)
     # launches: the serving run for the serving kernels, the training run

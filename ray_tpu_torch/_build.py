@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface, under ``build/ray_tpu_torch/`` at
 the repository root (git-ignored). The library's file name carries a hash
-of its source, so an edited source is rebuilt and a stale library is never
+of its source, of the shared headers (``csrc/*.cuh``) and of nvcc's flags,
+so an edited source, header or flag is rebuilt and a stale library is never
 loaded. ``build_all`` starts one ``nvcc`` per source at once.
 
 Every C entry point takes its pointers and the CUDA stream as ``void*``
@@ -66,10 +67,15 @@ def _nvcc() -> str:
     return str(nvcc)
 
 
-def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+def library_path(name: str, csrc: Path = CSRC, flags: Sequence[str] = NVCC_FLAGS) -> Path:
+    """Where ``csrc/<name>.cu``'s library lives. Its name carries a hash of
+    what the library is built from: the source, every shared header
+    (``csrc/*.cuh``, which any source may include) and nvcc's flags."""
+    digest = hashlib.sha256()
+    for path in [csrc / f"{name}.cu", *sorted(csrc.glob("*.cuh"))]:
+        digest.update(path.name.encode() + b"\0" + path.read_bytes() + b"\0")
+    digest.update("\0".join(flags).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def _start(name: str):

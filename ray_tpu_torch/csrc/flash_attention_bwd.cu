@@ -12,125 +12,100 @@
 //
 // What bounds it on this card: five S x S x D products per head (causal:
 // half of them), about S/2 multiply-adds per byte read at S = 2048, far
-// above the H100's ~295 operations per byte, so it is bound by the tensor
-// cores. The design keeps P, dP and dS out of device memory: each lives in
-// mma.sync accumulators, and is repacked in registers as the bf16 A operand
-// of the next product, as the forward does with P.
+// above the H100's ~295 operations per byte, so the tensor cores bound it:
+// 1.1e11 operations at GPT-J's B=1, S=2048, H=16, Hd=256, causal, 0.0869 ms
+// at 989 TFLOP/s. P, dP and dS never reach device memory.
 //
 // Translation: the TPU kernel carries its dK/dV and dQ sums across
 // sequential grid steps in scratch memory. CTAs on Hopper run in parallel
 // and carry nothing, so each sum is a loop inside one CTA, and the two sums
-// are two kernels, as on the TPU:
+// are two kernels, as on the TPU (seven products where the bound counts
+// five: both recompute S and dP). No atomics anywhere: the gradients are
+// the same bits from run to run.
 //   1. delta: D[b, h, i] = sum_d dO * O in fp32, one warp per row;
 //   2. dK/dV: one CTA per (64-key tile, kv head, batch) loops over the
-//      query heads of its grouped-query group and over the query tiles that
-//      can see its keys (causal: the diagonal tile and below), holding the
-//      tile's dK and dV in registers; the group's sum needs no atomics;
-//   3. dQ: one CTA per (64-query tile, head, batch) loops over the key
-//      tiles up to the diagonal, holding dQ in registers.
-// No atomics anywhere: the gradients are the same bits from run to run.
+//      query heads of its grouped-query group and over the 64-query tiles
+//      that can see its keys (causal: the diagonal tile and below);
+//   3. dQ: one CTA per (128-query tile, head, batch) loops over the key
+//      tiles up to the diagonal.
+//
+// Design, common to both (see hopper.cuh for the primitives): 384 threads,
+// two consumer warpgroups and one producer warpgroup, which gives its
+// registers to the consumers (setmaxnreg: 24 a thread for the producer,
+// 240 for the consumers). One producer thread loads the stationary tiles
+// once (K and V in dK/dV; Q and dO in dQ) and streams the others (Q and
+// dO; K and V) through TMA rings with full/empty mbarriers, so the next
+// tile is in flight while this one is multiplied. Every product is a
+// wgmma: the first operand of a score product from shared memory
+// (K-major), a probability or gradient from registers (the m64nNk16
+// accumulator layout is the A-operand layout), and the
+// contraction-along-rows operands (dO and Q in dK/dV, K in dQ) read
+// MN-major through the descriptor's transpose bit.
+//
+// dK/dV: the two warpgroups share one 64-key tile instead of each taking
+// its own, so that no product is computed twice and each thread holds one
+// D-wide accumulator, not two (at head_dim 256 dK and dV together would
+// take 256 fp32 registers a thread):
+//   warpgroup 0: S^T = K Q^T, P^T = exp(S^T * scale - lse), P^T (fp32) to
+//     shared memory for warpgroup 1, dV += P^T dO;
+//   warpgroup 1: dP^T = V dO^T, dS^T = P^T * (dP^T - D), dK += dS^T Q.
+// The two halves do the same tensor-core work. Named barriers hand P^T
+// over (ready) and back (free). P and dS are rounded to bf16 once each,
+// right before their products. The Q tile's lse and delta come with it,
+// by TMA, into shared memory: read from device memory by every thread,
+// they cost a quarter of the kernel's time. The ring has two stages: a
+// third, which overlapping one tile's products with the next would need,
+// has no room at head_dim 256.
+// dQ: each warpgroup owns 64 query rows: S = Q K^T and dP = dO V^T from
+// shared memory, dS in registers, dQ += dS K. As in the forward kernel,
+// S and dP of key tile j issue together with dQ's product for tile j - 1,
+// dS of tile j is computed under it, and the two warpgroups take turns to
+// issue. K is read last, by dQ, so its ring has three stages and V's two.
+// Key tiles are 64 wide at head_dim 64/128 and 32 at 256, where dQ alone
+// takes 128 registers.
+//
+// Shared memory per CTA (plus 1 KB for alignment and barriers):
+//   dK/dV: K, V (64 x D each), two stages of Q, dO (64 x D each), lse and
+//          delta, P^T (64 x 64 fp32): 65.5 / 113.5 / 209.5 KB at head_dim
+//          64 / 128 / 256;
+//   dQ:    Q, dO (128 x D each), three stages of K and two of V (BN x D
+//          each): 72 / 144 / 208 KB.
+// `nvcc -Xptxas -v` (sm_90a, CUDA 12.8): every dK/dV and dQ instantiation
+// 168 registers a thread at launch (384 threads; setmaxnreg then moves them
+// as above), delta 26; 0 bytes spilled in all.
 //
 // Layout: BSHD. q/o/dO/dQ (B, Sq, H, D), k/v/dK/dV (B, Sk, KV, D), all
-// contiguous; lse and delta (B, H, Sq) fp32, lse in natural log as the
-// forward writes it. Causal masking is top-left aligned (query i sees keys
-// 0..i). Ragged tails: out-of-range rows load as zeros, their P is set to
-// exactly 0, and no row past Sq or Sk is written.
-//
-// Head_dim 256 (GPT-J): a warp's fp32 dK and dV for 16 keys x 256 columns
-// would take 256 registers a thread. The dK/dV kernel therefore runs 8
-// warps there, two per 16-key row group, each holding half of the columns
-// (both recompute the group's S^T and dP^T), and takes 32-query tiles; the
-// dQ kernel takes 32-key tiles. `nvcc -Xptxas -v` for sm_90a (CUDA 12.8),
-// registers per thread with no spills: dK/dV 168 / 252 / 232 and dQ 126 /
-// 164 / 240 at head_dim 64 / 128 / 256, delta 26. Dynamic shared memory per
-// CTA: dK/dV 37.4 / 70.1 / 101.6 KB, dQ 36.9 / 69.6 / 101.4 KB; the limit
-// is set per launch. Shared rows are padded by 8 elements against bank
-// conflicts.
-//
-// Simple and right first: no cp.async/TMA overlap, no wgmma, scalar
-// fragment loads for the transposed operands. Making it fast is later work.
+// contiguous and 16-byte aligned; lse and delta (B, H, Sq) fp32, lse in
+// natural log as the forward writes it. Causal masking is top-left aligned
+// (query i sees keys 0..i). Ragged tails: TMA reads rows past the sequence
+// as zeros, P is set to exactly 0 for any query or key out of range, and
+// no row past Sq or Sk is written.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int BLOCK_N_KV = 64;  // keys per dK/dV CTA: 4 row groups of 16
-constexpr int BLOCK_M_Q = 64;   // queries per dQ CTA: 4 warps x 16 rows
+using namespace hopper;
+
+constexpr int STAGES = 2;
+constexpr int CONSUMERS = 256;
+constexpr int THREADS = CONSUMERS + 128;  // + the producer warpgroup
+constexpr int PRODUCER_REGS = 24;
+constexpr int CONSUMER_REGS = 240;  // 2 x 128 x 240 + 128 x 24 = 64,512 of 65,536
+constexpr int KV_ROWS = 64;              // keys per dK/dV CTA
+constexpr int KV_BM = 64;                // queries per dK/dV step
+constexpr int Q_ROWS = 128;              // queries per dQ CTA
+// A Q tile's lse or delta: a TMA box starts 16-byte aligned in device
+// memory, so a box of KV_BM + 4 values starts at the tile's first row
+// rounded down to 4, and 128-byte aligned in shared memory, so the two
+// boxes lie STAT_ROW floats apart.
+constexpr int STAT_BOX = KV_BM + 4;
+constexpr int STAT_ROW = KV_BM + 32;
+constexpr int DQ_K_STAGES = 3;           // the dQ kernel's K ring
+constexpr int BAR_P_READY = 1;           // named barriers of the dK/dV kernel
+constexpr int BAR_P_FREE = 2;
+constexpr int BAR_TURN = 1;              // of the dQ kernel: 1, 2, the warpgroups' turns
 constexpr float LOG2E = 1.4426950408889634f;
-
-typedef __nv_bfloat16 bf16;
-
-__device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x is the low half
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(bf16 lo, bf16 hi) {
-  uint32_t l = *reinterpret_cast<const uint16_t*>(&lo);
-  uint32_t h = *reinterpret_cast<const uint16_t*>(&hi);
-  return l | (h << 16);
-}
-
-// c += a (16x16, row-major) * b (16x8, column-major), fp32 accumulators.
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4], const uint32_t b[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// A fragment of rows [row0, row0 + 16) x columns [kk, kk + 16) of a padded
-// row-major shared tile.
-template <int STRIDE>
-__device__ __forceinline__ void load_a(uint32_t a[4], const bf16* s, int row0, int kk, int g,
-                                       int t) {
-  const bf16* p = s + (row0 + g) * STRIDE + kk + 2 * t;
-  a[0] = *reinterpret_cast<const uint32_t*>(p);
-  a[1] = *reinterpret_cast<const uint32_t*>(p + 8 * STRIDE);
-  a[2] = *reinterpret_cast<const uint32_t*>(p + 8);
-  a[3] = *reinterpret_cast<const uint32_t*>(p + 8 * STRIDE + 8);
-}
-
-// B fragment with B[k][n] = T[n0 + n][kk + k]: the tile's rows are B's
-// columns (contiguous pairs).
-template <int STRIDE>
-__device__ __forceinline__ void load_b_rows(uint32_t b[2], const bf16* s, int n0, int kk, int g,
-                                            int t) {
-  const bf16* p = s + (n0 + g) * STRIDE + kk + 2 * t;
-  b[0] = *reinterpret_cast<const uint32_t*>(p);
-  b[1] = *reinterpret_cast<const uint32_t*>(p + 8);
-}
-
-// B fragment with B[k][n] = T[k0 + k][n0 + n]: the tile's rows are B's rows
-// (pairs from two rows).
-template <int STRIDE>
-__device__ __forceinline__ void load_b_cols(uint32_t b[2], const bf16* s, int k0, int n0, int g,
-                                            int t) {
-  const bf16* p = s + (k0 + 2 * t) * STRIDE + n0 + g;
-  b[0] = pack_bf16(p[0], p[STRIDE]);
-  b[1] = pack_bf16(p[8 * STRIDE], p[9 * STRIDE]);
-}
-
-// Rows [row0, row0 + ROWS) of one head of a (S, heads, D) tensor into a
-// padded shared tile; rows at or past n_rows are zeros.
-template <int D, int ROWS>
-__device__ __forceinline__ void load_tile(bf16* smem, const bf16* g, int row0, int n_rows,
-                                          long row_stride) {
-  constexpr int CHUNKS = D / 8;  // 16-byte chunks per row
-  constexpr int STRIDE = D + 8;
-  for (int c = threadIdx.x; c < ROWS * CHUNKS; c += blockDim.x) {
-    const int r = c / CHUNKS;
-    const int col = (c % CHUNKS) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < n_rows) {
-      val = *reinterpret_cast<const uint4*>(g + (long)(row0 + r) * row_stride + col);
-    }
-    *reinterpret_cast<uint4*>(smem + r * STRIDE + col) = val;
-  }
-}
 
 // delta[b, h, i] = sum_d dO[b, i, h, d] * O[b, i, h, d], one warp per row;
 // rows run in (b, i, h) order. The lanes' fixed split and the fixed shuffle
@@ -159,319 +134,458 @@ __global__ void bwd_delta_kernel(const bf16* __restrict__ o, const bf16* __restr
   }
 }
 
-// dK, dV of one 64-key tile of one kv head. Warp w owns key rows
-// 16 * (w % 4) .. +16 and accumulator columns (w / 4) * D / DS .. + D / DS.
-template <int D, int BM, int DS>
-__global__ void __launch_bounds__(128 * DS)
-    flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                         const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                         const float* __restrict__ lse, const float* __restrict__ delta,
-                         bf16* __restrict__ dk, bf16* __restrict__ dv, int Sq, int Sk, int H,
-                         int KV, int causal, float scale) {
-  constexpr int BN = BLOCK_N_KV;
-  constexpr int STRIDE = D + 8;
-  constexpr int DW = D / DS;  // accumulator columns per warp
-  constexpr int MT = BM / 8;  // 8-query column tiles of S^T
-  constexpr int DT = DW / 8;  // 8-wide column tiles of dK, dV
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sK = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sV = sK + BN * STRIDE;
-  bf16* sQ = sV + BN * STRIDE;
-  bf16* sdO = sQ + BM * STRIDE;
-  float* sL = reinterpret_cast<float*>(sdO + BM * STRIDE);  // lse * log2(e)
-  float* sD = sL + BM;                                      // delta
-
-  const int n0 = blockIdx.x * BN;
-  const int kvh = blockIdx.y;
-  const int b = blockIdx.z;
-  const int group = H / KV;
-  const long q_stride = (long)H * D;
-  const long kv_stride = (long)KV * D;
-  const bf16* kb = k + (long)b * Sk * kv_stride + (long)kvh * D;
-  const bf16* vb = v + (long)b * Sk * kv_stride + (long)kvh * D;
-
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane >> 2;  // fragment row group
-  const int t = lane & 3;   // thread within the group
-  const int wrow = (warp % 4) * 16;
-  const int dcol = (warp / 4) * DW;
-  const float scale_log2 = scale * LOG2E;
-
-  load_tile<D, BN>(sK, kb, n0, Sk, kv_stride);
-  load_tile<D, BN>(sV, vb, n0, Sk, kv_stride);
-
-  float dk_acc[DT][4], dv_acc[DT][4];
-#pragma unroll
-  for (int i = 0; i < DT; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) dk_acc[i][j] = dv_acc[i][j] = 0.f;
-  }
-
-  const int m_first = causal ? n0 / BM : 0;  // first query tile that sees key n0
-  const int m_blocks = (Sq + BM - 1) / BM;
-  for (int hh = 0; hh < group; ++hh) {
-    const int h = kvh * group + hh;
-    const bf16* qb = q + (long)b * Sq * q_stride + (long)h * D;
-    const bf16* dob = dout + (long)b * Sq * q_stride + (long)h * D;
-    const float* lseb = lse + ((long)b * H + h) * Sq;
-    const float* deltab = delta + ((long)b * H + h) * Sq;
-    for (int mb = m_first; mb < m_blocks; ++mb) {
-      const int m0 = mb * BM;
-      __syncthreads();  // every warp is done with the previous Q/dO tile
-      load_tile<D, BM>(sQ, qb, m0, Sq, q_stride);
-      load_tile<D, BM>(sdO, dob, m0, Sq, q_stride);
-      for (int i = threadIdx.x; i < BM; i += blockDim.x) {
-        const bool in = m0 + i < Sq;
-        sL[i] = in ? lseb[m0 + i] * LOG2E : 0.f;
-        sD[i] = in ? deltab[m0 + i] : 0.f;
-      }
-      __syncthreads();
-
-      // S^T = K Q^T and dP^T = V dO^T for this warp's 16 keys x BM queries
-      float s[MT][4], dp[MT][4];
-#pragma unroll
-      for (int i = 0; i < MT; ++i) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-      }
-#pragma unroll
-      for (int kk = 0; kk < D; kk += 16) {
-        uint32_t ak[4], av[4];
-        load_a<STRIDE>(ak, sK, wrow, kk, g, t);
-        load_a<STRIDE>(av, sV, wrow, kk, g, t);
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          uint32_t bq[2], bo[2];
-          load_b_rows<STRIDE>(bq, sQ, mt * 8, kk, g, t);
-          mma_bf16(s[mt], ak, bq);
-          load_b_rows<STRIDE>(bo, sdO, mt * 8, kk, g, t);
-          mma_bf16(dp[mt], av, bo);
-        }
-      }
-
-      // P^T = exp(S^T * scale - lse), exactly 0 where masked; dS^T in dp
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int key = n0 + wrow + g + 8 * (j >> 1);
-          const int qi = mt * 8 + 2 * t + (j & 1);
-          const int row = m0 + qi;
-          float p = exp2f(s[mt][j] * scale_log2 - sL[qi]);
-          if (row >= Sq || key >= Sk || (causal && key > row)) p = 0.f;
-          s[mt][j] = p;
-          dp[mt][j] = p * (dp[mt][j] - sD[qi]);
-        }
-      }
-
-      // dV += P^T dO and dK += dS^T Q over this warp's columns: the
-      // accumulators of two 8-query tiles are the A operand of one
-      // 16-query step
-#pragma unroll
-      for (int kc = 0; kc < BM / 16; ++kc) {
-        uint32_t ap[4], ads[4];
-        ap[0] = pack_f32(s[2 * kc][0], s[2 * kc][1]);
-        ap[1] = pack_f32(s[2 * kc][2], s[2 * kc][3]);
-        ap[2] = pack_f32(s[2 * kc + 1][0], s[2 * kc + 1][1]);
-        ap[3] = pack_f32(s[2 * kc + 1][2], s[2 * kc + 1][3]);
-        ads[0] = pack_f32(dp[2 * kc][0], dp[2 * kc][1]);
-        ads[1] = pack_f32(dp[2 * kc][2], dp[2 * kc][3]);
-        ads[2] = pack_f32(dp[2 * kc + 1][0], dp[2 * kc + 1][1]);
-        ads[3] = pack_f32(dp[2 * kc + 1][2], dp[2 * kc + 1][3]);
-#pragma unroll
-        for (int dt = 0; dt < DT; ++dt) {
-          uint32_t bb[2];
-          load_b_cols<STRIDE>(bb, sdO, kc * 16, dcol + dt * 8, g, t);
-          mma_bf16(dv_acc[dt], ap, bb);
-          load_b_cols<STRIDE>(bb, sQ, kc * 16, dcol + dt * 8, g, t);
-          mma_bf16(dk_acc[dt], ads, bb);
-        }
-      }
-    }
-  }
-
-  // epilogue: rows past Sk are not written
+// Stores a 64 x D accumulator (rows row0 + 16 * warp + lane / 4 [+ 8]) as
+// bf16 times `mul`, skipping rows at or past n_rows.
+template <int D>
+__device__ __forceinline__ void store_rows(bf16* base, long row_stride, const float (&acc)[D / 2],
+                                           int row_lo, int n_rows, int t, float mul) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int key = n0 + wrow + g + 8 * r;
-    if (key >= Sk) continue;
-    const long off = ((long)b * Sk + key) * kv_stride + (long)kvh * D + dcol;
+    const int row = row_lo + 8 * r;
+    if (row >= n_rows) continue;
+    bf16* p = base + (long)row * row_stride;
 #pragma unroll
-    for (int dt = 0; dt < DT; ++dt) {
-      *reinterpret_cast<__nv_bfloat162*>(dk + off + dt * 8 + 2 * t) =
-          __floats2bfloat162_rn(dk_acc[dt][2 * r] * scale, dk_acc[dt][2 * r + 1] * scale);
-      *reinterpret_cast<__nv_bfloat162*>(dv + off + dt * 8 + 2 * t) =
-          __floats2bfloat162_rn(dv_acc[dt][2 * r], dv_acc[dt][2 * r + 1]);
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<__nv_bfloat162*>(p + 8 * j + 2 * t) =
+          __floats2bfloat162_rn(acc[4 * j + 2 * r] * mul, acc[4 * j + 2 * r + 1] * mul);
     }
   }
 }
 
-// dQ of one 64-query tile of one head; each of the 4 warps owns 16 rows.
-template <int D, int BN>
-__global__ void __launch_bounds__(128)
-    flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                        const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                        const float* __restrict__ lse, const float* __restrict__ delta,
-                        bf16* __restrict__ dq, int Sq, int Sk, int H, int KV, int causal,
-                        float scale) {
-  constexpr int BM = BLOCK_M_Q;
-  constexpr int STRIDE = D + 8;
-  constexpr int NT = BN / 8;  // 8-key column tiles of S
-  constexpr int DT = D / 8;   // 8-wide column tiles of dQ
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sdO = sQ + BM * STRIDE;
-  bf16* sK = sdO + BM * STRIDE;
-  bf16* sV = sK + BN * STRIDE;
+template <int D>
+struct DkvSmem {
+  static constexpr int KV = KV_ROWS * D * 2;  // one of K, V
+  static constexpr int TILE = KV_BM * D * 2;  // one of Q, dO
+  static constexpr int STAGE = 2 * TILE;
+  static constexpr int RING = 2 * KV;
+  static constexpr int XBUF = RING + STAGES * STAGE;  // P^T, fp32, fragment order
+  static constexpr int STAT = 2 * STAT_ROW * 4;         // lse and delta of one Q tile
+  static constexpr int STATS = XBUF + KV_ROWS * KV_BM * 4;
+  static constexpr int BARS = STATS + STAGES * STAT;
+  static constexpr int BYTES = 1024 + BARS + 8 * (1 + 2 * STAGES);
+};
 
-  // the heaviest causal tiles (last queries) start first
-  const int m0 = (gridDim.x - 1 - blockIdx.x) * BM;
-  const int h = blockIdx.y;
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+    flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
+                         const __grid_constant__ CUtensorMap tm_k,
+                         const __grid_constant__ CUtensorMap tm_v,
+                         const __grid_constant__ CUtensorMap tm_do,
+                         const __grid_constant__ CUtensorMap tm_lse,
+                         const __grid_constant__ CUtensorMap tm_delta,
+                         bf16* __restrict__ dk, bf16* __restrict__ dv, int Sq, int Sk, int H,
+                         int KV, int causal, float scale) {
+  using L = DkvSmem<D>;
+  constexpr int BM = KV_BM;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  unsigned char* smem = smem_raw + (base - smem_u32(smem_raw));
+  float* xbuf = reinterpret_cast<float*>(smem + L::XBUF);
+  const uint32_t sK = base;
+  const uint32_t sV = base + L::KV;
+  const uint32_t sRing = base + L::RING;
+  const uint32_t kv_full = base + L::BARS;
+  const uint32_t full = kv_full + 8;          // + 8 * stage
+  const uint32_t empty = full + 8 * STAGES;   // + 8 * stage
+
+  const int n0 = blockIdx.x * KV_ROWS;
+  const int kvh = blockIdx.y;
   const int b = blockIdx.z;
-  const int kvh = h / (H / KV);
-  const long q_stride = (long)H * D;
-  const long kv_stride = (long)KV * D;
-  const bf16* qb = q + (long)b * Sq * q_stride + (long)h * D;
-  const bf16* dob = dout + (long)b * Sq * q_stride + (long)h * D;
-  const bf16* kb = k + (long)b * Sk * kv_stride + (long)kvh * D;
-  const bf16* vb = v + (long)b * Sk * kv_stride + (long)kvh * D;
+  const int group = H / KV;
+  const int m_first = causal ? n0 / BM : 0;  // first query tile that sees key n0
+  const int m_blocks = (Sq + BM - 1) / BM;
+  const int n_mb = max(m_blocks - m_first, 0);
+  const int n_iter = group * n_mb;  // (query head, query tile) steps
 
-  const int warp = threadIdx.x / 32;
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, CONSUMERS);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= CONSUMERS) {  // the producer warpgroup: one thread issues TMA
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x == CONSUMERS) {
+      mbar_expect_tx(kv_full, 2 * L::KV);
+      tma_load_tile<D, KV_ROWS>(sK, &tm_k, kv_full, kvh, n0, b);
+      tma_load_tile<D, KV_ROWS>(sV, &tm_v, kv_full, kvh, n0, b);
+      for (int it = 0; it < n_iter; ++it) {
+        const int s = it % STAGES;
+        const int h = kvh * group + it / n_mb;
+        const int m0 = (m_first + it % n_mb) * BM;
+        if (it >= STAGES) mbar_wait(empty + 8 * s, ((it / STAGES) - 1) & 1);
+        const uint32_t st = sRing + s * L::STAGE;
+        const uint32_t stat = base + L::STATS + s * L::STAT;
+        const int row = (((b * H) + h) * Sq + m0) & ~3;  // of the (B, H, Sq) statistics
+        mbar_expect_tx(full + 8 * s, L::STAGE + 2 * STAT_BOX * 4);
+        tma_load_tile<D, BM>(st, &tm_q, full + 8 * s, h, m0, b);
+        tma_load_tile<D, BM>(st + L::TILE, &tm_do, full + 8 * s, h, m0, b);
+        tma_load_1d(stat, &tm_lse, full + 8 * s, row);
+        tma_load_1d(stat + STAT_ROW * 4, &tm_delta, full + 8 * s, row);
+      }
+    }
+    return;
+  }
+  setmaxnreg_inc<CONSUMER_REGS>();
+
+  const int wg = threadIdx.x / 128;
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32;
   const int lane = threadIdx.x % 32;
   const int g = lane >> 2;
   const int t = lane & 3;
-  const int wrow = warp * 16;
+  const int key_lo = n0 + warp * 16 + g;  // this thread's keys: key_lo, key_lo + 8
   const float scale_log2 = scale * LOG2E;
 
-  load_tile<D, BM>(sQ, qb, m0, Sq, q_stride);
-  load_tile<D, BM>(sdO, dob, m0, Sq, q_stride);
-  // lse (log2 domain) and delta of rows g and g + 8 of this warp
+  float acc[D / 2];  // dV (warpgroup 0) or dK (warpgroup 1)
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+  mbar_wait(kv_full, 0);
+  for (int it = 0; it < n_iter; ++it) {
+    const int s = it % STAGES;
+    const int h = kvh * group + it / n_mb;
+    const int m0 = (m_first + it % n_mb) * BM;
+    const uint32_t sQ = sRing + s * L::STAGE;
+    const uint32_t sdO = sQ + L::TILE;
+    // the tile's lse (warpgroup 0) or delta (warpgroup 1), BM values; rows
+    // past Sq hold the next head's values or zeros, and are masked
+    const float* stat = reinterpret_cast<const float*>(smem + L::STATS + s * L::STAT) +
+                        wg * STAT_ROW + ((((b * H) + h) * Sq + m0) & 3);
+    mbar_wait(full + 8 * s, (it / STAGES) & 1);
+
+    // S^T = K Q^T (warpgroup 0) or dP^T = V dO^T (warpgroup 1): 64 keys x
+    // BM queries
+    float st[BM / 2];
+    const uint32_t sA = wg == 0 ? sK : sV;
+    const uint32_t sB = wg == 0 ? sQ : sdO;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D; kk += 16) {
+      wgmma_ss<BM, 0>(st, desc_k<KV_ROWS>(sA, 0, kk), desc_k<BM>(sB, 0, kk), kk > 0);
+    }
+    wgmma_commit();
+    // this thread's queries are m0 + 8 * j + 2 * t + (e & 1)
+    float2 stat_v[BM / 8];
+#pragma unroll
+    for (int j = 0; j < BM / 8; ++j) {
+      stat_v[j] = make_float2(stat[8 * j + 2 * t], stat[8 * j + 2 * t + 1]);
+    }
+    wgmma_wait<0>();
+    fence_regs(st);
+
+    uint32_t a[BM / 16][4];
+    if (wg == 0) {
+      // P^T = exp(S^T * scale - lse), exactly 0 where masked
+      const bool masked = m0 + BM > Sq || n0 + KV_ROWS > Sk || (causal && n0 + KV_ROWS - 1 > m0);
+#pragma unroll
+      for (int j = 0; j < BM / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float lse_l2 = ((e & 1) ? stat_v[j].y : stat_v[j].x) * LOG2E;
+          float p = exp2f(st[4 * j + e] * scale_log2 - lse_l2);
+          if (masked) {
+            const int key = key_lo + 8 * (e >> 1);
+            const int qi = m0 + 8 * j + 2 * t + (e & 1);
+            if (qi >= Sq || key >= Sk || (causal && key > qi)) p = 0.f;
+          }
+          st[4 * j + e] = p;
+        }
+      }
+      if (it > 0) bar_sync(BAR_P_FREE, CONSUMERS);  // warpgroup 1 has read the last P^T
+#pragma unroll
+      for (int i = 0; i < BM / 2; ++i) xbuf[i * 128 + tid] = st[i];
+      bar_arrive(BAR_P_READY, CONSUMERS);
+    } else {
+      // dS^T = P^T * (dP^T - delta), with warpgroup 0's P^T
+      bar_sync(BAR_P_READY, CONSUMERS);
+#pragma unroll
+      for (int j = 0; j < BM / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 4 * j + e;
+          st[i] = xbuf[i * 128 + tid] * (st[i] - ((e & 1) ? stat_v[j].y : stat_v[j].x));
+        }
+      }
+      if (it + 1 < n_iter) bar_arrive(BAR_P_FREE, CONSUMERS);
+    }
+
+    // dV += P^T dO (warpgroup 0) or dK += dS^T Q (warpgroup 1)
+#pragma unroll
+    for (int c = 0; c < BM / 16; ++c) acc_to_a(a[c], st, c);
+    const uint32_t sC = wg == 0 ? sdO : sQ;
+    wgmma_fence();
+#pragma unroll
+    for (int c = 0; c < BM / 16; ++c) wgmma_rs<D, 1>(acc, a[c], desc_mn<BM>(sC, 16 * c), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    mbar_arrive(empty + 8 * s);
+  }
+
+  const long kv_stride = (long)KV * D;
+  bf16* out = (wg == 0 ? dv : dk) + (long)b * Sk * kv_stride + (long)kvh * D;
+  store_rows<D>(out, kv_stride, acc, key_lo, Sk, t, wg == 0 ? 1.f : scale);
+}
+
+template <int D, int BN>
+struct DqSmem {
+  static constexpr int Q = Q_ROWS * D * 2;  // one of Q, dO
+  static constexpr int TILE = BN * D * 2;   // one of K, V
+  static constexpr int K = 2 * Q;                     // K stages
+  static constexpr int V = K + DQ_K_STAGES * TILE;    // V stages
+  static constexpr int BARS = V + STAGES * TILE;
+  static constexpr int BYTES = 1024 + BARS + 8 * (1 + 2 * DQ_K_STAGES + 2 * STAGES);
+};
+
+template <int D, int BN>
+__global__ void __launch_bounds__(THREADS, 1)
+    flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
+                        const __grid_constant__ CUtensorMap tm_k,
+                        const __grid_constant__ CUtensorMap tm_v,
+                        const __grid_constant__ CUtensorMap tm_do,
+                        const float* __restrict__ lse, const float* __restrict__ delta,
+                        bf16* __restrict__ dq, int Sq, int Sk, int H, int KV, int causal,
+                        float scale) {
+  using L = DqSmem<D, BN>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sQ = base;
+  const uint32_t sdO = base + L::Q;
+  const uint32_t q_full = base + L::BARS;
+  const uint32_t full_k = q_full + 8;  // + 8 * stage
+  const uint32_t empty_k = full_k + 8 * DQ_K_STAGES;
+  const uint32_t full_v = empty_k + 8 * DQ_K_STAGES;
+  const uint32_t empty_v = full_v + 8 * STAGES;
+
+  // the heaviest causal tiles (last queries) start first
+  const int m0 = (gridDim.x - 1 - blockIdx.x) * Q_ROWS;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int kvh = h / (H / KV);
+  const int n_end = causal ? min(Sk, m0 + Q_ROWS) : Sk;
+  const int n_tiles = (n_end + BN - 1) / BN;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < DQ_K_STAGES; ++s) {
+      mbar_init(full_k + 8 * s, 1);
+      mbar_init(empty_k + 8 * s, CONSUMERS);
+    }
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full_v + 8 * s, 1);
+      mbar_init(empty_v + 8 * s, CONSUMERS);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= CONSUMERS) {  // the producer warpgroup: one thread issues TMA
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x == CONSUMERS) {
+      mbar_expect_tx(q_full, 2 * L::Q);
+      tma_load_tile<D, Q_ROWS>(sQ, &tm_q, q_full, h, m0, b);
+      tma_load_tile<D, Q_ROWS>(sdO, &tm_do, q_full, h, m0, b);
+      for (int it = 0; it < n_tiles; ++it) {
+        const int sk = it % DQ_K_STAGES, sv = it % STAGES;
+        if (it >= DQ_K_STAGES) mbar_wait(empty_k + 8 * sk, ((it / DQ_K_STAGES) - 1) & 1);
+        mbar_expect_tx(full_k + 8 * sk, L::TILE);
+        tma_load_tile<D, BN>(base + L::K + sk * L::TILE, &tm_k, full_k + 8 * sk, kvh, it * BN, b);
+        if (it >= STAGES) mbar_wait(empty_v + 8 * sv, ((it / STAGES) - 1) & 1);
+        mbar_expect_tx(full_v + 8 * sv, L::TILE);
+        tma_load_tile<D, BN>(base + L::V + sv * L::TILE, &tm_v, full_v + 8 * sv, kvh, it * BN, b);
+      }
+    }
+    return;
+  }
+  setmaxnreg_inc<CONSUMER_REGS>();
+
+  const int wg = threadIdx.x / 128;
+  const int warp = (threadIdx.x % 128) / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int wg_m0 = m0 + wg * 64;
+  const int row_lo = wg_m0 + warp * 16 + g;  // this thread's rows: row_lo, row_lo + 8
+  // causal: the warpgroup computes only the tiles that reach its rows
+  const int n_act = causal ? (min(Sk, wg_m0 + 64) + BN - 1) / BN : n_tiles;
+  const float scale_log2 = scale * LOG2E;
+
+  // lse (log2 domain) and delta of this thread's rows
   float row_l[2], row_d[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int row = m0 + wrow + g + 8 * r;
+    const int row = row_lo + 8 * r;
     const long idx = ((long)b * H + h) * Sq + row;
     row_l[r] = row < Sq ? lse[idx] * LOG2E : 0.f;
     row_d[r] = row < Sq ? delta[idx] : 0.f;
   }
 
-  float acc[DT][4];
+  float acc[D / 2];
 #pragma unroll
-  for (int i = 0; i < DT; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-  const int n_end = causal ? min(Sk, m0 + BM) : Sk;
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  float sc[BN / 2], dp[BN / 2];
+  uint32_t pa[BN / 16][4];
 
-  for (int n0 = 0; n0 < n_end; n0 += BN) {
-    __syncthreads();  // every warp is done with the previous K/V tile
-    load_tile<D, BN>(sK, kb, n0, Sk, kv_stride);
-    load_tile<D, BN>(sV, vb, n0, Sk, kv_stride);
-    __syncthreads();
-
-    // S = Q K^T and dP = dO V^T for this warp's 16 rows x BN keys
-    float s[NT][4], dp[NT][4];
+  // As in the forward kernel: iteration it issues S_it = Q K_it^T and
+  // dP_it = dO V_it^T together with dQ += dS_{it-1} K_{it-1}, and computes
+  // dS_it while that product is in flight; the warpgroups take turns to
+  // issue, and every wgmma is issued from straight-line code. K is read
+  // last (by dQ), so its ring has a third stage.
+  auto turn_begin = [&]() { bar_sync(BAR_TURN + wg, CONSUMERS); };
+  auto turn_end = [&](bool last) {
+    if (wg == 0 || !last) bar_arrive(BAR_TURN + 1 - wg, CONSUMERS);
+  };
+  auto issue_sdp = [&](int it) {
+    const int sk = it % DQ_K_STAGES, sv = it % STAGES;
+    const uint32_t sK = base + L::K + sk * L::TILE;
+    const uint32_t sV = base + L::V + sv * L::TILE;
+    mbar_wait(full_k + 8 * sk, (it / DQ_K_STAGES) & 1);
+    mbar_wait(full_v + 8 * sv, (it / STAGES) & 1);
+    // derived anew each tile: the 2 x D / 16 descriptors of Q and dO, kept
+    // in registers across the loop, would spill at head_dim 256
+    uint64_t q_desc = desc_k<Q_ROWS>(sQ, wg * 64, 0), do_desc = desc_k<Q_ROWS>(sdO, wg * 64, 0);
+    opaque(q_desc);
+    opaque(do_desc);
+    wgmma_fence();
 #pragma unroll
-    for (int i = 0; i < NT; ++i) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+    for (int kk = 0; kk < D; kk += 16) {
+      wgmma_ss<BN, 0>(sc, q_desc + k_step<Q_ROWS>(kk), desc_k<BN>(sK, 0, kk), kk > 0);
     }
 #pragma unroll
     for (int kk = 0; kk < D; kk += 16) {
-      uint32_t aq[4], ao[4];
-      load_a<STRIDE>(aq, sQ, wrow, kk, g, t);
-      load_a<STRIDE>(ao, sdO, wrow, kk, g, t);
+      wgmma_ss<BN, 0>(dp, do_desc + k_step<Q_ROWS>(kk), desc_k<BN>(sV, 0, kk), kk > 0);
+    }
+    wgmma_commit();
+  };
+  auto issue_dq = [&](int it) {
+    const uint32_t sK = base + L::K + (it % DQ_K_STAGES) * L::TILE;
+    wgmma_fence();
 #pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        uint32_t bk[2], bv[2];
-        load_b_rows<STRIDE>(bk, sK, nt * 8, kk, g, t);
-        mma_bf16(s[nt], aq, bk);
-        load_b_rows<STRIDE>(bv, sV, nt * 8, kk, g, t);
-        mma_bf16(dp[nt], ao, bv);
+    for (int c = 0; c < BN / 16; ++c) wgmma_rs<D, 1>(acc, pa[c], desc_mn<BN>(sK, 16 * c), 1);
+    wgmma_commit();
+  };
+  // dS = P * (dP - delta), P exactly 0 where masked, left in sc (fp32)
+  auto grad = [&](int it) {
+    fence_regs(sc);
+    fence_regs(dp);
+    mbar_arrive(empty_v + 8 * (it % STAGES));
+    const int n0 = it * BN;
+    const bool masked = wg_m0 + 64 > Sq || n0 + BN > Sk || (causal && n0 + BN - 1 > wg_m0);
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        float p = exp2f(sc[4 * j + e] * scale_log2 - row_l[r]);
+        if (masked) {
+          const int row = row_lo + 8 * r;
+          const int col = n0 + 8 * j + 2 * t + (e & 1);
+          if (row >= Sq || col >= Sk || (causal && col > row)) p = 0.f;
+        }
+        sc[4 * j + e] = p * (dp[4 * j + e] - row_d[r]);
       }
     }
+  };
+  auto dq_done = [&](int it) {
+    fence_regs(acc);
+    mbar_arrive(empty_k + 8 * (it % DQ_K_STAGES));
+  };
+  auto pack_ds = [&]() {
+#pragma unroll
+    for (int c = 0; c < BN / 16; ++c) acc_to_a(pa[c], sc, c);
+  };
 
-    // dS = P * (dP - delta), P exactly 0 where masked; kept in s
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int r = j >> 1;
-        const int row = m0 + wrow + g + 8 * r;
-        const int col = n0 + nt * 8 + 2 * t + (j & 1);
-        float p = exp2f(s[nt][j] * scale_log2 - row_l[r]);
-        if (row >= Sq || col >= Sk || (causal && col > row)) p = 0.f;
-        s[nt][j] = p * (dp[nt][j] - row_d[r]);
-      }
-    }
-
-    // dQ += dS K
-#pragma unroll
-    for (int kc = 0; kc < BN / 16; ++kc) {
-      uint32_t a[4];
-      a[0] = pack_f32(s[2 * kc][0], s[2 * kc][1]);
-      a[1] = pack_f32(s[2 * kc][2], s[2 * kc][3]);
-      a[2] = pack_f32(s[2 * kc + 1][0], s[2 * kc + 1][1]);
-      a[3] = pack_f32(s[2 * kc + 1][2], s[2 * kc + 1][3]);
-#pragma unroll
-      for (int dt = 0; dt < DT; ++dt) {
-        uint32_t bk[2];
-        load_b_cols<STRIDE>(bk, sK, kc * 16, dt * 8, g, t);
-        mma_bf16(acc[dt], a, bk);
-      }
-    }
+  mbar_wait(q_full, 0);
+  if (wg == 1) bar_arrive(BAR_TURN + 0, CONSUMERS);
+  turn_begin();
+  issue_sdp(0);
+  turn_end(false);
+  wgmma_wait<0>();
+  grad(0);
+  pack_ds();
+  for (int it = 1; it < n_act; ++it) {
+    turn_begin();
+    issue_sdp(it);
+    issue_dq(it - 1);
+    turn_end(false);
+    wgmma_wait<1>();
+    grad(it);
+    wgmma_wait<0>();
+    dq_done(it - 1);
+    pack_ds();
+  }
+  turn_begin();
+  issue_dq(n_act - 1);
+  turn_end(n_act == n_tiles);
+  wgmma_wait<0>();
+  dq_done(n_act - 1);
+  // causal tiles past this warpgroup's rows: release them, take the turns
+  for (int it = n_act; it < n_tiles; ++it) {
+    mbar_wait(full_k + 8 * (it % DQ_K_STAGES), (it / DQ_K_STAGES) & 1);
+    mbar_arrive(empty_k + 8 * (it % DQ_K_STAGES));
+    mbar_wait(full_v + 8 * (it % STAGES), (it / STAGES) & 1);
+    mbar_arrive(empty_v + 8 * (it % STAGES));
+    turn_begin();
+    turn_end(it + 1 == n_tiles);
   }
 
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = m0 + wrow + g + 8 * r;
-    if (row >= Sq) continue;
-    bf16* qrow = dq + ((long)b * Sq + row) * q_stride + (long)h * D;
-#pragma unroll
-    for (int dt = 0; dt < DT; ++dt) {
-      *reinterpret_cast<__nv_bfloat162*>(qrow + dt * 8 + 2 * t) =
-          __floats2bfloat162_rn(acc[dt][2 * r] * scale, acc[dt][2 * r + 1] * scale);
-    }
-  }
+  const long q_stride = (long)H * D;
+  store_rows<D>(dq + (long)b * Sq * q_stride + (long)h * D, q_stride, acc, row_lo, Sq, t, scale);
 }
 
-// BM: queries per step of the dK/dV kernel; DS: warps per 16-key row group
-// there; BN: keys per step of the dQ kernel.
-template <int D, int BM, int DS, int BN>
+// BN: keys per step of the dQ kernel.
+template <int D, int BN>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* o, const void* lse,
                    const void* dout, void* delta, void* dq, void* dk, void* dv, int B, int Sq,
                    int Sk, int H, int KV, int causal, float scale, cudaStream_t stream) {
-  const bf16* q_ = static_cast<const bf16*>(q);
-  const bf16* k_ = static_cast<const bf16*>(k);
-  const bf16* v_ = static_cast<const bf16*>(v);
-  const bf16* do_ = static_cast<const bf16*>(dout);
   const float* lse_ = static_cast<const float*>(lse);
   float* delta_ = static_cast<float*>(delta);
 
   const long rows = (long)B * Sq * H;
   constexpr int DELTA_WARPS = 8;
   bwd_delta_kernel<<<(unsigned)((rows + DELTA_WARPS - 1) / DELTA_WARPS), DELTA_WARPS * 32, 0,
-                     stream>>>(static_cast<const bf16*>(o), do_, delta_, Sq, H, D, rows);
+                     stream>>>(static_cast<const bf16*>(o), static_cast<const bf16*>(dout),
+                               delta_, Sq, H, D, rows);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  const int smem_kv =
-      (2 * BLOCK_N_KV + 2 * BM) * (D + 8) * (int)sizeof(bf16) + 2 * BM * (int)sizeof(float);
-  err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<D, BM, DS>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem_kv);
+  CUtensorMap tm_q, tm_k, tm_v, tm_do, tm_lse, tm_delta;
+  err = encode_bshd(&tm_q, q, B, Sq, H, D, KV_BM);
+  if (err == cudaSuccess) err = encode_f32_1d(&tm_lse, lse, rows, STAT_BOX);
+  if (err == cudaSuccess) err = encode_f32_1d(&tm_delta, delta, rows, STAT_BOX);
+  if (err == cudaSuccess) err = encode_bshd(&tm_do, dout, B, Sq, H, D, KV_BM);
+  if (err == cudaSuccess) err = encode_bshd(&tm_k, k, B, Sk, KV, D, KV_ROWS);
+  if (err == cudaSuccess) err = encode_bshd(&tm_v, v, B, Sk, KV, D, KV_ROWS);
   if (err != cudaSuccess) return err;
-  dim3 grid_kv((Sk + BLOCK_N_KV - 1) / BLOCK_N_KV, KV, B);
-  flash_bwd_dkv_kernel<D, BM, DS><<<grid_kv, 128 * DS, smem_kv, stream>>>(
-      q_, k_, v_, do_, lse_, delta_, static_cast<bf16*>(dk), static_cast<bf16*>(dv), Sq, Sk, H,
-      KV, causal, scale);
+  constexpr int smem_kv = DkvSmem<D>::BYTES;
+  err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem_kv);
+  if (err != cudaSuccess) return err;
+  dim3 grid_kv((Sk + KV_ROWS - 1) / KV_ROWS, KV, B);
+  flash_bwd_dkv_kernel<D><<<grid_kv, THREADS, smem_kv, stream>>>(
+      tm_q, tm_k, tm_v, tm_do, tm_lse, tm_delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+      Sq, Sk, H, KV, causal, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  const int smem_q = (2 * BLOCK_M_Q + 2 * BN) * (D + 8) * (int)sizeof(bf16);
+  err = encode_bshd(&tm_q, q, B, Sq, H, D, Q_ROWS);
+  if (err == cudaSuccess) err = encode_bshd(&tm_do, dout, B, Sq, H, D, Q_ROWS);
+  if (err == cudaSuccess) err = encode_bshd(&tm_k, k, B, Sk, KV, D, BN);
+  if (err == cudaSuccess) err = encode_bshd(&tm_v, v, B, Sk, KV, D, BN);
+  if (err != cudaSuccess) return err;
+  constexpr int smem_q = DqSmem<D, BN>::BYTES;
   err = cudaFuncSetAttribute(flash_bwd_dq_kernel<D, BN>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem_q);
   if (err != cudaSuccess) return err;
-  dim3 grid_q((Sq + BLOCK_M_Q - 1) / BLOCK_M_Q, H, B);
-  flash_bwd_dq_kernel<D, BN><<<grid_q, 128, smem_q, stream>>>(
-      q_, k_, v_, do_, lse_, delta_, static_cast<bf16*>(dq), Sq, Sk, H, KV, causal, scale);
+  dim3 grid_q((Sq + Q_ROWS - 1) / Q_ROWS, H, B);
+  flash_bwd_dq_kernel<D, BN><<<grid_q, THREADS, smem_q, stream>>>(
+      tm_q, tm_k, tm_v, tm_do, lse_, delta_, static_cast<bf16*>(dq), Sq, Sk, H, KV, causal,
+      scale);
   return cudaGetLastError();
 }
 
@@ -488,14 +602,14 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 64:
-      return (int)launch<64, 64, 1, 64>(q, k, v, o, lse, dout, delta, dq, dk, dv, B, Sq, Sk, H,
-                                        KV, causal, scale, s);
+      return (int)launch<64, 64>(q, k, v, o, lse, dout, delta, dq, dk, dv, B, Sq, Sk, H, KV,
+                                 causal, scale, s);
     case 128:
-      return (int)launch<128, 64, 1, 64>(q, k, v, o, lse, dout, delta, dq, dk, dv, B, Sq, Sk, H,
-                                         KV, causal, scale, s);
+      return (int)launch<128, 64>(q, k, v, o, lse, dout, delta, dq, dk, dv, B, Sq, Sk, H, KV,
+                                  causal, scale, s);
     case 256:
-      return (int)launch<256, 32, 2, 32>(q, k, v, o, lse, dout, delta, dq, dk, dv, B, Sq, Sk, H,
-                                         KV, causal, scale, s);
+      return (int)launch<256, 32>(q, k, v, o, lse, dout, delta, dq, dk, dv, B, Sq, Sk, H, KV,
+                                  causal, scale, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
