@@ -6,7 +6,7 @@
 Run from the root of a checkout, on a machine with one CUDA card and nvcc.
 It builds the port's CUDA kernels from ``ray_tpu_torch/csrc``, shows with
 ``cuobjdump -sass`` that the flash libraries hold wgmma (HGMMA) and TMA
-(UTMALDG) instructions, holds each
+(UTMALDG) instructions and the paged library asynchronous copies, holds each
 kernel against its plain PyTorch version on the card at the serving path's
 shapes, runs the full-width Llama-2-7B forward through the flash kernel,
 and then drives the port's serving path: an ``InferenceEngine`` serving
@@ -61,6 +61,9 @@ FWD_MAX_ABS, FWD_MEAN_ABS, FWD_NOISE = 0.25, 0.03, 1.2
 # differ; a mismatch is accepted only where the top two logits of forward
 # lie within this of each other.
 TOP2_GAP = 0.05
+# Prompt lengths of phase_decode_check's batch (slot 6 inactive); the
+# paged kernel is also timed alone at these contexts.
+DECODE_LENGTHS = [1500, 16, 700, 33, 1100, 250, 0, 999]
 
 
 def log(phase: str, **fields) -> None:
@@ -207,28 +210,30 @@ def _cuobjdump() -> str:
     return str(tool)
 
 
-# SASS opcodes: warpgroup matrix multiply, and the two asynchronous tile
-# copies (TMA, cp.async)
-SASS_OPS = ("HGMMA", "UTMALDG", "LDGSTS")
+# SASS opcodes: warpgroup matrix multiply, and the asynchronous copies
+# (TMA tile, bulk copy, cp.async)
+SASS_OPS = ("HGMMA", "UTMALDG", "UBLKCP", "LDGSTS")
+ASYNC_COPIES = ("UTMALDG", "UBLKCP", "LDGSTS")
 
 
 def phase_sass() -> dict:
-    """What the redesigned libraries were compiled to: each must hold
-    HGMMA (wgmma) and an asynchronous tile copy (UTMALDG or LDGSTS)."""
+    """What the redesigned libraries were compiled to: each must hold an
+    asynchronous copy (UTMALDG, UBLKCP or LDGSTS), and the flash
+    libraries HGMMA (wgmma) too."""
     from ray_tpu_torch import _build
 
     tool = _cuobjdump()
     counts = {}
-    for name in ("flash_attention", "flash_attention_bwd"):
+    for name in ("flash_attention", "flash_attention_bwd", "paged_attention"):
         sass = subprocess.run([tool, "-sass", str(_build.library_path(name))],
                               capture_output=True, text=True, check=True, timeout=300).stdout
         counts[name] = {op: sum(1 for line in sass.splitlines() if op in line) for op in SASS_OPS}
     log("sass", cuobjdump=tool, counts=counts)
     for name, c in counts.items():
-        if not c["HGMMA"]:
+        if name.startswith("flash") and not c["HGMMA"]:
             raise AssertionError(f"sass: no HGMMA in {name}: {c}")
-        if not (c["UTMALDG"] or c["LDGSTS"]):
-            raise AssertionError(f"sass: no asynchronous tile copy in {name}: {c}")
+        if not any(c[op] for op in ASYNC_COPIES):
+            raise AssertionError(f"sass: no asynchronous copy in {name}: {c}")
     return counts
 
 
@@ -398,6 +403,9 @@ def check_paged(name, contexts, h, kv, d, block_size, max_blocks, gen):
     torch.cuda.synchronize()
     err = max_err(out, ref, f"paged {name}")
     ms = cuda_ms(lambda: paged_attention(q, kp, vp, tables, positions, block_size))
+    # the kernel's own device time: a small case's ms measures the host
+    kernel_ms = kernel_split(lambda: paged_attention(q, kp, vp, tables, positions, block_size),
+                             {"paged": "paged_"})["paged"]
     plain_ms = cuda_ms(
         lambda: paged_attention_reference(q, kp, vp, tables, positions, block_size), iters=5)
     gk, gv = gather_rows(kp, tables, block_size), gather_rows(vp, tables, block_size)
@@ -412,9 +420,9 @@ def check_paged(name, contexts, h, kv, d, block_size, max_blocks, gen):
               + 4.0 * b + 2.0 * 2 * b * h * d)
     bound_ms, bound_by = bound(flops, nbytes)
     row = dict(case=name, contexts=contexts, heads=[h, kv, d], block_size=block_size,
-               max_abs_err=err, tol=TOL_RULE, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-               bound_ms=bound_ms, bound_by=bound_by, gbps=nbytes / ms / 1e6,
-               vs_library=ms / lib_ms)
+               max_abs_err=err, tol=TOL_RULE, ms=ms, kernel_ms=kernel_ms, plain_ms=plain_ms,
+               library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by,
+               gbps=nbytes / ms / 1e6, vs_library=ms / lib_ms)
     log("kernel_paged", **row)
     return row
 
@@ -439,6 +447,9 @@ def phase_kernels():
     paged_main = check_paged("b8_ctx4096", contexts, 32, 32, 128, 16, 256, gen)
     paged_rows = [
         paged_main,
+        # phase_decode_check's step: its prompts plus the decoded token
+        check_paged("decode_b8", [n + 1 if n else 0 for n in DECODE_LENGTHS], 32, 32, 128, 16,
+                    256, gen),
         check_paged("gqa_kv8", [300, 1, 777, 0], 32, 8, 128, 16, 64, gen),
         check_paged("d64", [100, 600, 0], 4, 2, 64, 16, 64, gen),
         check_paged("d256", [100, 600, 0], 4, 4, 256, 8, 128, gen),
@@ -488,7 +499,7 @@ def phase_decode_check(params, cfg, ecfg):
 
     gen = torch.Generator().manual_seed(3)
     b, mb, bs = ecfg.max_batch, ecfg.max_blocks_per_seq, ecfg.block_size
-    lengths = [1500, 16, 700, 33, 1100, 250, 0, 999]  # slot 6 inactive
+    lengths = DECODE_LENGTHS
     pool = G.init_paged_pool(cfg, 1 + sum(-(-n // bs) for n in lengths) + b, bs)
     prefill, decode, greedy = G.make_paged_fns(cfg, block_size=bs)
     _, plain_decode, _ = G.make_paged_fns(cfg, block_size=bs, use_kernels=False)

@@ -46,10 +46,11 @@ SIGNATURES: Dict[str, tuple] = {
         [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
     ),
     # q, k_pool, v_pool, block_tables, positions, out, partial_o, partial_ml,
-    # B, H, KV, D, max_blocks, block_size, num_blocks, n_splits, scale, stream
+    # counters, B, H, KV, D, max_blocks, block_size, num_blocks, n_splits,
+    # scale, stream
     "paged_attention_decode": (
         "paged_attention",
-        [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+        [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
     ),
 }
 

@@ -1,6 +1,7 @@
-// Hopper (sm_90a) primitives shared by the flash-attention kernels: TMA
-// tensor maps and loads, mbarriers, named barriers, and warpgroup matrix
-// multiplies (wgmma) with shared-memory descriptors.
+// Hopper (sm_90a) primitives shared by the attention kernels: TMA tensor
+// maps and loads, cp.async copies completed on mbarriers, mbarriers, named
+// barriers, and warpgroup matrix multiplies (wgmma) with shared-memory
+// descriptors.
 //
 // Shared tiles use the 128-byte swizzle that TMA writes and wgmma reads. A
 // tile of R rows x D bf16 columns is stored as D / 64 column blocks of
@@ -149,6 +150,18 @@ __device__ __forceinline__ void tma_load_1d(uint32_t dst, const CUtensorMap* map
       "[%0], [%1, {%3}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0)
       : "memory");
+}
+
+// 16 bytes from global to shared memory, asynchronously (cp.async, L2 only:
+// the data is streamed once). Both addresses 16-byte aligned.
+__device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src) : "memory");
+}
+
+// Counts one arrival on `bar` once every cp.async this thread has issued so
+// far has landed; the arrival is already in the barrier's expected count.
+__device__ __forceinline__ void cp_async_mbar_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
 }
 
 // Rows [row0, row0 + ROWS) x all D columns of one head: D / 64 boxes, one

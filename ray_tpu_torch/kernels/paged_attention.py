@@ -18,9 +18,9 @@ import torch
 from ray_tpu_torch import _build
 
 HEAD_DIMS = (64, 128, 256)
-# context tokens per CTA of the first pass; a fixed size, so that a
-# sequence's reduction order never depends on its batch neighbours
-PARTITION = 512
+# context tokens per CTA; a fixed size, so that a sequence's reduction
+# order never depends on its batch neighbours
+PARTITION = 256
 _NEG_INF = -1e30
 
 
@@ -94,19 +94,22 @@ def paged_attention(
     if n_slots % block_size or mb * block_size > 2**31 - 1:
         raise ValueError("pool slots must be a whole number of blocks")
     q, block_tables, positions = q.contiguous(), block_tables.contiguous(), positions.contiguous()
-    if any(t.data_ptr() % 4 for t in (q, k_pool, v_pool)):
-        raise ValueError("paged_attention kernel loads bf16 pairs: inputs must be 4-byte aligned")
+    if any(t.data_ptr() % 16 for t in (q, k_pool, v_pool)):
+        raise ValueError("paged_attention kernel copies 16-byte chunks: inputs must be 16-aligned")
     n_splits = -(-mb * block_size // PARTITION)
     out = torch.empty_like(q)
     part_o = torch.empty((b, h, n_splits, d), dtype=torch.float32, device=q.device)
     part_ml = torch.empty((b, h, n_splits, 2), dtype=torch.float32, device=q.device)
+    # arrivals per (sequence, head group): the last CTA to arrive merges
+    counters = torch.zeros((b, h), dtype=torch.int32, device=q.device)
     fn = _build.function("paged_attention_decode")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         code = fn(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), block_tables.data_ptr(),
             positions.data_ptr(), out.data_ptr(), part_o.data_ptr(), part_ml.data_ptr(),
-            b, h, kv, d, mb, block_size, n_slots // block_size, n_splits, 1.0 / (d ** 0.5), stream,
+            counters.data_ptr(), b, h, kv, d, mb, block_size, n_slots // block_size, n_splits,
+            1.0 / (d ** 0.5), stream,
         )
     _build.check(code, "paged_attention_decode")
     paged_attention.launches += 1

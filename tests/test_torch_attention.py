@@ -22,6 +22,7 @@ from ray_tpu_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention_reference,
 )
 from ray_tpu_torch.kernels.paged_attention import (  # noqa: E402
+    PARTITION,
     _paged_attention,
     gather_rows,
     paged_attention,
@@ -128,24 +129,38 @@ def test_cpu_dispatch_takes_einsum_path():
     assert flash_attention.launches == before
 
 
-def _paged_case(seed=0, b=3, mb=6, bs=4, kv=2, h=4, d=16):
+def _paged_case(seed=0, contexts=(24, 6, 0), mb=6, bs=4, kv=2, h=4, d=16):
+    """Shuffled block tables for the given context lengths; a context of 0
+    is an inactive slot (null table, position 0)."""
     rs = np.random.RandomState(seed)
+    b = len(contexts)
     num_blocks = 1 + b * mb
     kpool = rs.randn(num_blocks * bs, kv, d).astype(np.float32)
     vpool = rs.randn(num_blocks * bs, kv, d).astype(np.float32)
     tables = np.zeros((b, mb), np.int32)
     perm = rs.permutation(np.arange(1, num_blocks)).astype(np.int32)
-    positions = np.array([mb * bs - 1, 5, 0][:b], np.int32)
-    for i in range(b):
-        n = positions[i] // bs + 1
+    positions = np.array([max(c - 1, 0) for c in contexts], np.int32)
+    for i, c in enumerate(contexts):
+        n = -(-c // bs)
         tables[i, :n] = perm[i * mb: i * mb + n]
-    tables[2, :] = 0  # an inactive slot: null table, position 0
     q = rs.randn(b, h, d).astype(np.float32)
     return q, kpool, vpool, tables, positions, bs
 
 
-def test_paged_plain_version_matches_jax():
-    q, kpool, vpool, tables, positions, bs = _paged_case()
+# the kernel's partition edges: contexts of one token, one partition less
+# one, exactly one, one more, two, and the whole block table
+EDGE_MB, EDGE_BS = 2 * PARTITION // 4 + 3, 4
+EDGE_CONTEXTS = (1, PARTITION - 1, PARTITION, PARTITION + 1, 2 * PARTITION, EDGE_MB * EDGE_BS)
+
+
+@pytest.mark.parametrize(
+    "contexts,mb,kv,h",
+    [((24, 6, 0), 6, 2, 4)]
+    + [((ctx, 6, 0), EDGE_MB, 2, 2 * group) for ctx in EDGE_CONTEXTS for group in (1, 4)],
+)
+def test_paged_plain_version_matches_jax(contexts, mb, kv, h):
+    q, kpool, vpool, tables, positions, bs = _paged_case(
+        contexts=contexts, mb=mb, bs=EDGE_BS, kv=kv, h=h)
     b, mb = tables.shape
     idx = (tables[:, :, None] * bs + np.arange(bs)[None, None, :]).reshape(b, mb * bs)
     ref = JG._paged_attention(q[:, None], kpool[idx], vpool[idx], positions[:, None])[:, 0]

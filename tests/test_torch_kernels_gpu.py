@@ -17,20 +17,29 @@ from ray_tpu_torch.kernels.flash_attention import (
     flash_attention_backward_reference,
     flash_attention_reference,
 )
-from ray_tpu_torch.kernels.paged_attention import paged_attention, paged_attention_reference
+from ray_tpu_torch.kernels.paged_attention import (
+    PARTITION,
+    paged_attention,
+    paged_attention_reference,
+)
 
 
-def _paged_case(seed, b, mb, bs, kv, h, d):
-    """Shuffled block tables, ragged positions, and an inactive last slot
-    (null table, position 0)."""
+def _paged_case(seed, b, mb, bs, kv, h, d, contexts=None):
+    """Shuffled block tables and an inactive last slot (null table,
+    position 0); the other contexts are ``contexts`` or ragged at random,
+    the first filling the table."""
     rs = np.random.RandomState(seed)
     num_blocks = 1 + b * mb
     kpool = rs.randn(num_blocks * bs, kv, d).astype(np.float32)
     vpool = rs.randn(num_blocks * bs, kv, d).astype(np.float32)
     tables = np.zeros((b, mb), np.int32)
     perm = rs.permutation(np.arange(1, num_blocks)).astype(np.int32)
-    positions = rs.randint(0, mb * bs, size=b).astype(np.int32)
-    positions[0] = mb * bs - 1
+    if contexts is None:
+        positions = rs.randint(0, mb * bs, size=b).astype(np.int32)
+        positions[0] = mb * bs - 1
+    else:
+        assert len(contexts) == b - 1
+        positions = np.array([c - 1 for c in contexts] + [0], np.int32)
     positions[-1] = 0
     for i in range(b - 1):
         n = positions[i] // bs + 1
@@ -100,12 +109,25 @@ def test_flash_kernel_rejects_what_it_does_not_take(cuda):
         flash_attention(q[..., :64].float(), q[..., :64].float(), q[..., :64].float())
 
 
-@pytest.mark.gpu
-def test_paged_kernel_matches_plain_on_card(cuda):
-    bs = 16
-    q, kpool, vpool, tables, positions = _paged_case(seed=2, b=5, mb=64, bs=bs, kv=2, h=8, d=128)
+def _to_card(cuda, q, kpool, vpool, tables, positions):
     tq, tk, tv = (torch.from_numpy(x).to(cuda).bfloat16() for x in (q, kpool, vpool))
     tt, tp = (torch.from_numpy(x).to(cuda) for x in (tables, positions))
+    return tq, tk, tv, tt, tp
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bs", [8, 16, 32])
+@pytest.mark.parametrize("group", [1, 4, 8])
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_paged_kernel_matches_plain_on_card(cuda, d, group, bs):
+    """Contexts on the kernel's partition edges (one token, one partition
+    less one, exactly one, one more, two, the whole table), query groups of
+    1, 4 and 8 heads per KV head, and an inactive slot."""
+    mb = 2 * PARTITION // bs + 3
+    contexts = [1, PARTITION - 1, PARTITION, PARTITION + 1, 2 * PARTITION, mb * bs]
+    case = _paged_case(seed=2, b=len(contexts) + 1, mb=mb, bs=bs, kv=2, h=2 * group, d=d,
+                       contexts=contexts)
+    tq, tk, tv, tt, tp = _to_card(cuda, *case)
     before = paged_attention.launches
     out = paged_attention(tq, tk, tv, tt, tp, bs)
     assert paged_attention.launches == before + 1
@@ -114,17 +136,36 @@ def test_paged_kernel_matches_plain_on_card(cuda):
 
 
 @pytest.mark.gpu
-def test_paged_kernel_rows_do_not_depend_on_neighbours(cuda):
+@pytest.mark.parametrize("kv,h,d", [(4, 4, 64), (2, 8, 128)])
+def test_paged_kernel_rows_do_not_depend_on_neighbours(cuda, kv, h, d):
     """Batch invariance on the card: each sequence's output is bitwise the
-    same alone as in the batch."""
+    same alone as in the batch; contexts span up to 5 partitions."""
     bs = 16
-    q, kpool, vpool, tables, positions = _paged_case(seed=3, b=4, mb=80, bs=bs, kv=4, h=4, d=64)
-    tq, tk, tv = (torch.from_numpy(x).to(cuda).bfloat16() for x in (q, kpool, vpool))
-    tt, tp = (torch.from_numpy(x).to(cuda) for x in (tables, positions))
+    case = _paged_case(seed=3, b=4, mb=80, bs=bs, kv=kv, h=h, d=d)
+    assert case[4][0] + 1 > 4 * PARTITION
+    tq, tk, tv, tt, tp = _to_card(cuda, *case)
     full = paged_attention(tq, tk, tv, tt, tp, bs)
-    for i in range(len(q)):
+    for i in range(len(tq)):
         alone = paged_attention(tq[i:i + 1], tk, tv, tt[i:i + 1], tp[i:i + 1], bs)
         assert torch.equal(full[i], alone[0])
+
+
+@pytest.mark.gpu
+def test_paged_kernel_rejects_what_it_does_not_take(cuda):
+    bs = 16
+    tq, tk, tv, tt, tp = _to_card(cuda, *_paged_case(seed=4, b=2, mb=4, bs=bs, kv=2, h=4, d=64))
+    for dtype in (torch.float16, torch.float32):  # the kernel takes bf16 only
+        with pytest.raises(ValueError):
+            paged_attention(tq.to(dtype), tk.to(dtype), tv.to(dtype), tt, tp, bs)
+    x = torch.zeros((tk.shape[0], 2, 96), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):  # head_dim 96
+        paged_attention(torch.zeros((2, 4, 96), device=cuda, dtype=torch.bfloat16), x, x, tt,
+                        tp, bs)
+    wide = torch.zeros((tk.shape[0], 2, 128), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):  # a pool slice that is not contiguous
+        paged_attention(tq, wide[..., :64], tv, tt, tp, bs)
+    with pytest.raises(ValueError):  # int64 block tables
+        paged_attention(tq, tk, tv, tt.long(), tp, bs)
 
 
 @pytest.mark.gpu
