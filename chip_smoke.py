@@ -9,12 +9,16 @@ It builds the port's CUDA kernels from ``ray_tpu_torch/csrc``, shows with
 (UTMALDG) instructions and the paged library asynchronous copies, holds each
 kernel against its plain PyTorch version on the card at the serving path's
 shapes, runs the full-width Llama-2-7B forward through the flash kernel,
-and then drives the port's serving path: an ``InferenceEngine`` serving
+and then drives the port's serving path: an ``LLMServer`` replica serving
 Llama-2-7B (random weights from a seed) through flash-attention prefill and
-paged-attention decode. Then the training path: the flash-attention
-backward kernel against its plain version, gradients of a 4-layer GPT-J
-through flash against plain and fp32, and ``build_lm_train_step`` training
-GPT-J-6B at full width and depth for 5 AdamW steps on one fixed batch.
+paged-attention decode, and ``generate`` over a dense KV cache (a static
+batch: flash prefill, paged decode over one whole-sequence block per row).
+Then ViT-L/16 (forward, gradients and SGD steps through both flash kernels
+at head_dim 64), the MNIST nets, the MoE MLP and a checkpoint round trip;
+then the training path: the flash-attention backward kernel against its
+plain version, gradients of a 4-layer GPT-J through flash against plain and
+fp32, and ``build_lm_train_step`` training GPT-J-6B at full width and depth
+for 5 AdamW steps on one fixed batch.
 Every phase prints one JSON object; any failure or missed tolerance raises
 (non-zero exit). The last two lines are the per-kernel summary and the
 result line read by automation:
@@ -64,6 +68,12 @@ TOP2_GAP = 0.05
 # Prompt lengths of phase_decode_check's batch (slot 6 inactive); the
 # paged kernel is also timed alone at these contexts.
 DECODE_LENGTHS = [1500, 16, 700, 33, 1100, 250, 0, 999]
+# Kernel rows at this slice's shapes: ViT-L/16's attention (phase_vit), and
+# the paged kernel over phase_dense_generate's cache (8 x 544 slots,
+# contexts of its decode steps, 513-543).
+VIT_FLASH_CASE = "vit_l16_full_s197"
+DENSE_PAGED_CASE = "dense_b8_bs544"
+DENSE_CONTEXTS = [512, 520, 527, 531, 536, 539, 541, 543]
 
 
 def log(phase: str, **fields) -> None:
@@ -368,10 +378,13 @@ def phase_kernels_bwd():
         check_flash_bwd("gqa_kv8_s1000", 1, 1000, 32, 8, 128, True, gen),
         check_flash_bwd("d64_s300", 2, 300, 4, 4, 64, True, gen),
         check_flash_bwd("full_s2048", 1, 2048, 32, 32, 128, False, gen),
+        check_flash_bwd(VIT_FLASH_CASE, 64, 197, 16, 16, 64, False, gen),
     ]
 
 
-def check_paged(name, contexts, h, kv, d, block_size, max_blocks, gen):
+def check_paged(name, contexts, h, kv, d, block_size, max_blocks, gen, dense=False):
+    """``dense``: the dense cache's layout, one block of ``block_size``
+    slots per sequence and table ``arange(B)``."""
     from torch.nn.functional import scaled_dot_product_attention as sdpa
 
     from ray_tpu_torch.kernels.paged_attention import (
@@ -382,16 +395,20 @@ def check_paged(name, contexts, h, kv, d, block_size, max_blocks, gen):
 
     dev = "cuda"
     b = len(contexts)
-    need = [-(-c // block_size) for c in contexts]
-    num_blocks = 1 + sum(need)
-    # shuffled, non-contiguous block ids; an inactive slot (context 0)
-    # keeps an all-null table at position 0, as the engine pads it
-    perm = torch.randperm(num_blocks - 1, generator=torch.Generator().manual_seed(7)) + 1
-    tables = torch.zeros((b, max_blocks), dtype=torch.int32)
-    off = 0
-    for i, n in enumerate(need):
-        tables[i, :n] = perm[off:off + n].to(torch.int32)
-        off += n
+    if dense:
+        num_blocks = b
+        tables = torch.arange(b, dtype=torch.int32)[:, None]
+    else:
+        need = [-(-c // block_size) for c in contexts]
+        num_blocks = 1 + sum(need)
+        # shuffled, non-contiguous block ids; an inactive slot (context 0)
+        # keeps an all-null table at position 0, as the engine pads it
+        perm = torch.randperm(num_blocks - 1, generator=torch.Generator().manual_seed(7)) + 1
+        tables = torch.zeros((b, max_blocks), dtype=torch.int32)
+        off = 0
+        for i, n in enumerate(need):
+            tables[i, :n] = perm[off:off + n].to(torch.int32)
+            off += n
     positions = torch.tensor([max(c - 1, 0) for c in contexts], dtype=torch.int32)
     tables, positions = tables.to(dev), positions.to(dev)
     pool_shape = (num_blocks * block_size, kv, d)
@@ -441,6 +458,8 @@ def phase_kernels():
         check_flash("d256_s257", 1, 257, 4, 4, 256, True, gen),
         check_flash("d256_full_s130", 2, 130, 4, 2, 256, False, gen),
         check_flash("gptj_causal_s2048", 1, 2048, 16, 16, 256, True, gen),
+        # phase_vit's attention: ViT-L/16 at B=64, 197 tokens, bidirectional
+        check_flash(VIT_FLASH_CASE, 64, 197, 16, 16, 64, False, gen),
     ]
     # ragged contexts up to 4096 and one inactive slot (context 0)
     contexts = [4096, 1, 17, 1000, 2500, 0, 513, 3333]
@@ -453,6 +472,8 @@ def phase_kernels():
         check_paged("gqa_kv8", [300, 1, 777, 0], 32, 8, 128, 16, 64, gen),
         check_paged("d64", [100, 600, 0], 4, 2, 64, 16, 64, gen),
         check_paged("d256", [100, 600, 0], 4, 4, 256, 8, 128, gen),
+        # phase_dense_generate's decode: a dense cache of 544 slots per sequence
+        check_paged(DENSE_PAGED_CASE, DENSE_CONTEXTS, 32, 32, 128, 544, 1, gen, dense=True),
     ]
     return flash_rows, paged_rows
 
@@ -542,19 +563,25 @@ def phase_decode_check(params, cfg, ecfg):
 
 
 def phase_serve(params, cfg, ecfg):
-    """The main path: 12 greedy requests and one sampled, staggered."""
+    """The main path: an ``LLMServer`` replica (the deployment class, its
+    engine given the weights by ``params_loader``) serving 12 greedy
+    requests and one sampled, staggered; then one request in the proxy's
+    dict convention, which must repeat a greedy stream's first tokens."""
     from ray_tpu_torch.kernels.flash_attention import flash_attention, flash_attention_backward
     from ray_tpu_torch.kernels.paged_attention import paged_attention
-    from ray_tpu_torch.serve.llm.engine import InferenceEngine
+    from ray_tpu_torch.serve.llm.deployment import LLMServer
 
     gen = torch.Generator().manual_seed(5)
     lengths = torch.linspace(16, 1500, 12).round().int().tolist()
     lengths = [lengths[i] for i in torch.randperm(12, generator=gen).tolist()]
     prompts = [torch.randint(1, cfg.vocab_size, (n,), generator=gen).tolist() for n in lengths]
     sampled_prompt = torch.randint(1, cfg.vocab_size, (200,), generator=gen).tolist()
-    max_new = 32
-    engine = InferenceEngine(params, cfg, ecfg, deployment="llama2-7b", device="cuda")
+    max_new, unary_new = 32, 8
+    server = LLMServer(cfg, ecfg, deployment="llama2-7b", params_loader=lambda _cfg: params,
+                       device="cuda")
+    engine = server.engine
     try:
+        server.check_health()
         for kern in (flash_attention, paged_attention, flash_attention_backward):
             kern.launches = 0
         t0 = time.perf_counter()
@@ -569,16 +596,20 @@ def phase_serve(params, cfg, ecfg):
         outs = [s.tokens() for s in streams]
         greedy_outs = [o for s, o in zip(streams, outs) if s is not sampled]
         wall = time.perf_counter() - t0
+        unary = server({"prompt": prompts[0], "max_new_tokens": unary_new})
         counts = {kern.__name__: kern.launches
                   for kern in (flash_attention, paged_attention, flash_attention_backward)}
-        stats = engine.kv_stats()
+        stats = server.kv_stats()
     finally:
         engine.shutdown()
     if any(len(o) != max_new for o in outs):
         raise AssertionError(f"streams ended short: {[len(o) for o in outs]}")
+    if unary != greedy_outs[0][:unary_new]:
+        raise AssertionError(f"dict-convention call {unary} is not the stream's "
+                             f"{greedy_outs[0][:unary_new]}")
     if stats["blocks_free"] != stats["blocks_total"] or stats["blocks_committed"] != 0:
         raise AssertionError(f"blocks not freed after serving: {stats}")
-    n_req = len(streams)
+    n_req = len(streams) + 1
     if counts["flash_attention"] != n_req * cfg.n_layers:
         raise AssertionError(f"flash launches {counts['flash_attention']} != one per layer "
                              f"of each of {n_req} prefills")
@@ -594,9 +625,9 @@ def phase_serve(params, cfg, ecfg):
                tokens=n_tok, wall_s=wall, tokens_per_s=n_tok / wall,
                ttft_p50_ms=ttft[len(ttft) // 2],
                ttft_p99_ms=ttft[min(len(ttft) - 1, math.ceil(0.99 * len(ttft)) - 1)],
-               decode_steps=int(steps), launches=counts)
+               decode_steps=int(steps), launches=counts, unary_tokens=unary)
     log("serve", **row)
-    return prompts, greedy_outs, counts
+    return prompts, greedy_outs, counts, row
 
 
 def phase_first_tokens(params, cfg, prompts, outs):
@@ -619,6 +650,101 @@ def phase_first_tokens(params, cfg, prompts, outs):
         worst_gap=worst_gap, tol=TOP2_GAP)
 
 
+def _logit_rule(what, got, want) -> dict:
+    """phase_decode_check's rule for logits through the kernels against the
+    plain path's: max and mean absolute difference, and argmax agreement
+    wherever the plain path's top two logits lie further apart than
+    TOP2_GAP (a closer pair is a near-tie that any bf16 rounding flips)."""
+    diff = (got - want).abs()
+    top2 = torch.topk(want, 2, dim=-1).values
+    decided = (top2[..., 0] - top2[..., 1]) > TOP2_GAP
+    agree = got.argmax(-1) == want.argmax(-1)
+    row = dict(max_abs_diff=diff.max().item(), mean_abs_diff=diff.mean().item(),
+               argmax_agree=agree.float().mean().item(),
+               argmax_disagree_decided=int((~agree & decided).sum().item()))
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{what}: non-finite logits")
+    if row["max_abs_diff"] > FWD_MAX_ABS or row["mean_abs_diff"] > FWD_MEAN_ABS \
+            or row["argmax_disagree_decided"]:
+        raise AssertionError(f"{what}: kernel vs plain logits beyond tolerance: {row}")
+    return row
+
+
+def phase_dense_generate(params, cfg, serve_row):
+    """The dense-cache path at full width and depth: ``generate`` on 8
+    seeded 512-token prompts, 32 new tokens, greedy. Prefill runs the flash
+    forward once per layer, each of the 31 decode steps the paged kernel
+    once per layer over the dense cache (one block of 544 slots per
+    sequence)."""
+    from ray_tpu_torch.kernels.flash_attention import flash_attention, flash_attention_backward
+    from ray_tpu_torch.kernels.paged_attention import paged_attention
+    from ray_tpu_torch.models import generation as G
+
+    kernels = (flash_attention, paged_attention, flash_attention_backward)
+    b, s, new = 8, 512, 32
+    max_len = s + new
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    prompts = torch.randint(1, cfg.vocab_size, (b, s), generator=gen, device="cuda")
+    try:
+        G.generate(params, torch.ones((1, cfg.max_seq_len), dtype=torch.int64), cfg,
+                   max_new_tokens=1)
+    except ValueError as e:
+        past_max = str(e)
+    else:
+        raise AssertionError("generate did not raise past max_seq_len")
+
+    fns = G.make_decode_fns(cfg, max_len)
+    walls = []
+    for run in range(2):
+        for kern in kernels:
+            kern.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks = G.generate(params, prompts, cfg, max_new_tokens=new, fns=fns)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        if run == 0:
+            counts = {kern.__name__: kern.launches for kern in kernels}
+            first = toks
+    want = {"flash_attention": cfg.n_layers, "paged_attention": cfg.n_layers * (new - 1),
+            "flash_attention_backward": 0}
+    if counts != want:
+        raise AssertionError(f"dense generate launches {counts}, want {want}")
+    if toks.shape != (b, new) or not torch.equal(toks, first):
+        raise AssertionError("dense generate: wrong shape, or two runs gave other tokens")
+
+    # the first decode step through the kernels and through the plain path,
+    # from the same cache (the step writes its own row before it attends)
+    prefill, decode = fns
+    plain_prefill, plain_decode = G.make_decode_fns(cfg, max_len, use_kernels=False)
+    cache = G.init_kv_cache(cfg, b, max_len, device="cuda")
+    logits, after = prefill(params, prompts, cache)
+    plain_logits, _ = plain_prefill(params, prompts,
+                                    G.init_kv_cache(cfg, b, max_len, device="cuda"))
+    tok = logits.argmax(-1)[:, None]
+    step_logits, _ = decode(params, tok, after)
+    plain_step, _ = plain_decode(params, tok, after)
+    torch.cuda.synchronize()
+    prefill_rule = _logit_rule("dense prefill", logits, plain_logits)
+    decode_rule = _logit_rule("dense decode", step_logits, plain_step)
+    del plain_logits, plain_step
+    torch.cuda.empty_cache()
+    prefill_ms = cuda_ms(lambda: prefill(params, prompts, cache), iters=3, warmup=1)
+    step_ms = cuda_ms(lambda: decode(params, tok, after), iters=10)
+    step_profile = device_profile(lambda: decode(params, tok, after), steps=3)
+    prefill_profile = device_profile(lambda: prefill(params, prompts, cache), steps=1)
+    tokens_per_s = b * new / walls[1]
+    row = dict(batch=b, prompt=s, new_tokens=new, cache_gib=2 * cache["k"].numel() * 2 / 2**30,
+               launches=counts, prefill_vs_plain=prefill_rule, decode_vs_plain=decode_rule,
+               tol=[FWD_MAX_ABS, FWD_MEAN_ABS, TOP2_GAP], past_max_seq_len=past_max,
+               generate_wall_s=walls, static_tokens_per_s=tokens_per_s,
+               engine_tokens_per_s=serve_row["tokens_per_s"], prefill_ms=prefill_ms,
+               decode_step_ms=step_ms, decode_step_profile=step_profile,
+               prefill_profile=prefill_profile)
+    log("dense_generate", **row)
+    return counts
+
+
 # Gradients through the whole model, flash against plain: both bf16 paths
 # differ from an fp32 run of the same weights by bf16 roundings that the
 # layers carry along; the flash path's only extra roundings are the
@@ -636,6 +762,226 @@ def _value_and_grads(params, tokens, targets, cfg, use_flash):
     loss = loss_fn(leaves, tokens, targets, cfg, use_flash=use_flash)
     loss.backward()
     return loss.item(), {k: v.grad for k, v in leaves.items() if v.grad is not None}
+
+
+# ViT-L/16 logits through the flash kernel against the plain path, both
+# bf16: the flash logits may stray from an fp32 run of the same weights no
+# further than VIT_NOISE times the plain logits do (mean absolute
+# deviation, PR 2's rule for the LM forward). Gradients: per parameter,
+# the flash path's relative Frobenius distance from the fp32 gradient at
+# most VIT_GRAD_NOISE times the plain path's (PR 3's rule for the kernel).
+VIT_NOISE, VIT_GRAD_NOISE = 1.2, 2.0
+
+
+def phase_vit(smi):
+    """ViT-L/16 (304 M parameters) at full width and depth, bf16, 224x224x3
+    images from a seeded generator: the forward at B=256 (24 flash
+    launches) against the plain path and fp32; ``loss_fn``'s gradient at
+    B=64 (24 flash-backward launches) against the plain path and fp32; then
+    3 SGD steps at lr 1e-2 on one batch."""
+    import dataclasses
+
+    from ray_tpu_torch.kernels.flash_attention import flash_attention, flash_attention_backward
+    from ray_tpu_torch.kernels.paged_attention import paged_attention
+    from ray_tpu_torch.models import vit
+
+    kernels = (flash_attention, flash_attention_backward, paged_attention)
+    cfg = vit.VIT_L_16
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    params = vit.init_params(torch.Generator(device="cuda").manual_seed(7), cfg, device="cuda")
+    n_params = sum(p.numel() for p in params.values())
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    images = torch.randn((256, cfg.image_size, cfg.image_size, cfg.num_channels), generator=gen,
+                         device="cuda")
+    labels = torch.randint(0, cfg.num_classes, (256,), generator=gen, device="cuda")
+
+    with torch.inference_mode():
+        for kern in kernels:
+            kern.launches = 0
+        flash_logits = vit.forward(cfg, params, images)
+        fwd_launches = {kern.__name__: kern.launches for kern in kernels}
+        plain_logits = vit.forward(cfg, params, images, use_flash=False)
+        ref32 = vit.forward(cfg32, {k: v.float() for k, v in params.items()}, images)
+        torch.cuda.empty_cache()
+        fwd_ms = cuda_ms(lambda: vit.forward(cfg, params, images), iters=5, warmup=1)
+        fwd_profile = device_profile(lambda: vit.forward(cfg, params, images), steps=1)
+    if fwd_launches != {"flash_attention": cfg.n_layers, "flash_attention_backward": 0,
+                        "paged_attention": 0}:
+        raise AssertionError(f"vit forward launches {fwd_launches}")
+    if flash_logits.shape != (256, cfg.num_classes) or not torch.isfinite(flash_logits).all():
+        raise AssertionError("vit forward: wrong shape or non-finite logits")
+    flash_dev = (flash_logits - ref32).abs().mean().item()
+    plain_dev = (plain_logits - ref32).abs().mean().item()
+    diff = (flash_logits - plain_logits).abs()
+    fwd = dict(batch=256, launches=fwd_launches, max_abs_diff=diff.max().item(),
+               mean_abs_diff=diff.mean().item(), flash_vs_fp32_mean=flash_dev,
+               plain_vs_fp32_mean=plain_dev,
+               argmax_agree=(flash_logits.argmax(-1) == plain_logits.argmax(-1)).float()
+               .mean().item(), logit_abs_max=plain_logits.abs().max().item(), tol=VIT_NOISE,
+               ms=fwd_ms, images_per_s=256 / (fwd_ms / 1e3), profile=fwd_profile)
+    log("vit_forward", **fwd)
+    if flash_dev > VIT_NOISE * plain_dev:
+        raise AssertionError(f"vit forward: flash logits beyond {VIT_NOISE}x plain from fp32")
+    del flash_logits, plain_logits, ref32
+
+    imgs, lbls = images[:64], labels[:64]
+
+    def value_and_grads(p, c, use_flash):
+        leaves = {k: v.detach().requires_grad_() for k, v in p.items()}
+        loss, _ = vit.loss_fn(c, leaves, imgs, lbls, use_flash=use_flash)
+        loss.backward()
+        return loss.item(), {k: v.grad for k, v in leaves.items()}
+
+    for kern in kernels:
+        kern.launches = 0
+    loss_flash, g_flash = value_and_grads(params, cfg, True)
+    bwd_launches = {kern.__name__: kern.launches for kern in kernels}
+    loss_plain, g_plain = value_and_grads(params, cfg, False)
+    loss_32, g_32 = value_and_grads({k: v.float() for k, v in params.items()}, cfg32, True)
+    errs = {k: {"flash_vs_fp32": rel_err(g_flash[k], g_32[k]),
+                "plain_vs_fp32": rel_err(g_plain[k], g_32[k]),
+                "flash_vs_plain": rel_err(g_flash[k], g_plain[k])} for k in sorted(g_32)}
+    finite = all(torch.isfinite(g).all().item() for g in g_flash.values())
+    del g_flash, g_plain, g_32
+    torch.cuda.empty_cache()
+    grads = dict(batch=64, launches=bwd_launches, loss_flash=loss_flash, loss_plain=loss_plain,
+                 loss_fp32=loss_32, grad_errors=errs, tol=VIT_GRAD_NOISE)
+    log("vit_grads", **grads)
+    if bwd_launches != {"flash_attention": cfg.n_layers, "flash_attention_backward": cfg.n_layers,
+                        "paged_attention": 0}:
+        raise AssertionError(f"vit gradient launches {bwd_launches}")
+    if not finite or not all(math.isfinite(x) for x in (loss_flash, loss_plain, loss_32)):
+        raise AssertionError("vit gradients: non-finite loss or gradient")
+    bad = {k: e for k, e in errs.items()
+           if e["flash_vs_fp32"] > VIT_GRAD_NOISE * e["plain_vs_fp32"]}
+    if bad:
+        raise AssertionError(f"vit gradients beyond {VIT_GRAD_NOISE}x plain from fp32: {bad}")
+
+    lr = 1e-2
+    leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
+
+    def sgd_step():
+        for v in leaves.values():
+            v.grad = None
+        loss, _ = vit.loss_fn(cfg, leaves, imgs, lbls)
+        loss.backward()
+        with torch.no_grad():
+            for v in leaves.values():
+                v.sub_(v.grad, alpha=lr)
+        return loss.detach()
+
+    torch.cuda.reset_peak_memory_stats()
+    for kern in kernels:
+        kern.launches = 0
+    losses, step_ms = [], []
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    for _ in range(3):
+        start.record()
+        loss = sgd_step()
+        end.record()
+        torch.cuda.synchronize()
+        step_ms.append(start.elapsed_time(end))
+        losses.append(loss.item())
+    step_launches = {kern.__name__: kern.launches for kern in kernels}
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    profile = device_profile(sgd_step, steps=1)
+    row = dict(config="VIT_L_16", params=n_params, batch=64, lr=lr, losses=losses,
+               step_ms=step_ms, images_per_s=64 / (step_ms[-1] / 1e3), peak_gib=peak_gib,
+               card=smi, launches=step_launches, profiled_step=profile)
+    log("vit_train", **row)
+    if step_launches != {"flash_attention": 3 * cfg.n_layers,
+                         "flash_attention_backward": 3 * cfg.n_layers, "paged_attention": 0}:
+        raise AssertionError(f"vit steps launched {step_launches}")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"vit: loss did not fall on one fixed batch: {losses}")
+    return {"forward": fwd_launches, "gradient": bwd_launches, "sgd_steps": step_launches}
+
+
+def synthetic_mnist():
+    """``test_mnist_mlp_learns_synthetic``'s data: class = argmax of 10
+    fixed projections."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    w_true = rng.normal(size=(784, 10))
+    xs = rng.normal(size=(512, 784)).astype(np.float32)
+    ys = np.argmax(xs @ w_true, axis=1)
+    return torch.from_numpy(xs).cuda(), torch.from_numpy(ys).cuda()
+
+
+def phase_small_models():
+    """MNIST MLP training (30 Adam steps) and a checkpoint round trip of its
+    state; the CNN's logits; the MoE MLP on the card against the CPU."""
+    import tempfile
+
+    from ray_tpu_torch.models import mnist, moe
+    from ray_tpu_torch.train import load_pytree, save_pytree
+
+    xs, ys = synthetic_mnist()
+
+    def mlp_state(seed):
+        params = mnist.init_mlp(torch.Generator(device="cuda").manual_seed(seed), hidden=(64,),
+                                device="cuda")
+        leaves = [t.requires_grad_() for layer in params["layers"] for t in layer.values()]
+        return {"params": params, "opt": torch.optim.Adam(leaves, lr=1e-3)}
+
+    def step(state):
+        state["opt"].zero_grad()
+        loss = mnist.cross_entropy_loss(mnist.apply_mlp(state["params"], xs), ys)
+        loss.backward()
+        state["opt"].step()
+        return loss.detach()
+
+    state = mlp_state(0)
+    losses = [step(state).item() for _ in range(30)]
+    with torch.no_grad():
+        acc = mnist.accuracy(mnist.apply_mlp(state["params"], xs), ys).item()
+    with tempfile.TemporaryDirectory() as tmp:
+        save_pytree(state, tmp)
+        restored = load_pytree(tmp, target=mlp_state(1))
+    want, got = step(state), step(restored)
+    round_trip = bool(torch.equal(want, got))
+
+    cnn = mnist.init_cnn(torch.Generator(device="cuda").manual_seed(2), device="cuda")
+    x = torch.randn((2, 28, 28, 1), generator=torch.Generator(device="cuda").manual_seed(3),
+                    device="cuda")
+    with torch.no_grad():
+        cnn_logits = mnist.apply_cnn(cnn, x)
+        cnn_cpu = mnist.apply_cnn(
+            {k: v.cpu() if torch.is_tensor(v) else {kk: vv.cpu() for kk, vv in v.items()}
+             for k, v in cnn.items()}, x.cpu())
+    cnn_err = (cnn_logits.cpu() - cnn_cpu).abs().max().item()
+
+    moe_rows = {}
+    for name, cfg, shape in (
+        ("default", moe.MoEConfig(), (4, 64, 128)),
+        ("capacity_0.25", moe.MoEConfig(d_model=16, d_ff=32, num_experts=2, top_k=1,
+                                        capacity_factor=0.25), (1, 32, 16)),
+    ):
+        p = moe.init_moe_params(torch.Generator(device="cuda").manual_seed(4), cfg, device="cuda")
+        xm = torch.randn(shape, generator=torch.Generator(device="cuda").manual_seed(5),
+                         device="cuda")
+        with torch.no_grad():
+            y, aux = moe.moe_mlp(p, xm, cfg)
+            y_cpu, aux_cpu = moe.moe_mlp({k: v.cpu() for k, v in p.items()}, xm.cpu(), cfg)
+        moe_rows[name] = dict(shape=list(shape), y_err=(y.cpu() - y_cpu).abs().max().item(),
+                              aux_err=abs(aux.item() - aux_cpu.item()),
+                              dropped_rows=int((y.abs().sum(-1) == 0).sum().item()))
+    row = dict(mlp_losses=[losses[0], losses[-1]], mlp_accuracy=acc,
+               checkpoint_next_loss=[want.item(), got.item()], checkpoint_bitwise=round_trip,
+               cnn_logits_shape=list(cnn_logits.shape), cnn_vs_cpu_max_abs=cnn_err, moe=moe_rows,
+               tol=dict(mlp_loss_ratio=0.6, mlp_accuracy=0.5, vs_cpu_atol=1e-4))
+    log("small_models", **row)
+    if not losses[-1] < 0.6 * losses[0] or not acc > 0.5:
+        raise AssertionError(f"mnist mlp did not learn: {losses[0]} -> {losses[-1]}, acc {acc}")
+    if not round_trip:
+        raise AssertionError(f"checkpoint round trip: next loss {got.item()} != {want.item()}")
+    if tuple(cnn_logits.shape) != (2, 10) or not cnn_err <= 1e-4:
+        raise AssertionError(f"cnn logits {tuple(cnn_logits.shape)}, {cnn_err} from the CPU")
+    bad = {k: r for k, r in moe_rows.items() if not (r["y_err"] <= 1e-4 and r["aux_err"] <= 1e-4)}
+    if bad:
+        raise AssertionError(f"moe on the card vs the CPU beyond 1e-4: {bad}")
 
 
 def phase_train_check():
@@ -780,16 +1126,21 @@ def main() -> int:
     ecfg = EngineConfig(block_size=16, num_blocks=1025, max_batch=8, max_blocks_per_seq=256)
     phase_decode_check(params, cfg, ecfg)
     torch.cuda.empty_cache()
-    prompts, outs, counts = phase_serve(params, cfg, ecfg)
+    prompts, outs, counts, serve_row = phase_serve(params, cfg, ecfg)
     with torch.inference_mode():
         phase_first_tokens(params, cfg, prompts, outs)
+    dense_counts = phase_dense_generate(params, cfg, serve_row)
     log("serve_total", seconds=time.perf_counter() - t_start,
         peak_gib=torch.cuda.max_memory_allocated() / 2**30)
 
-    # the training phases need the card's memory: drop the serving model
+    # the later phases need the card's memory: drop the serving model
     del params
     gc.collect()
     torch.cuda.empty_cache()
+    vit_counts = phase_vit(smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_small_models()
     bwd_rows = phase_kernels_bwd()
     phase_train_check()
     gc.collect()
@@ -797,25 +1148,35 @@ def main() -> int:
     train_counts = phase_train(smi)
     log("total", seconds=time.perf_counter() - t_start)
 
-    def entry(name, source, row, launches):
+    def entry(name, source, row, launches, by_path):
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": "ray_tpu/ops/attention.py:124" if name.startswith("flash")
                 else "ray_tpu/models/generation.py:187",
                 "launches": launches, "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                 "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                 "bound_by": row["bound_by"], "library_ms": row["library_ms"],
-                "vs_library": row["vs_library"]}
+                "vs_library": row["vs_library"], "launches_by_path": by_path}
 
     print(smi)
     # launches: the serving run for the serving kernels, the training run
-    # for the backward
+    # for the backward; each path's own run beside them
     print(json.dumps({"kernels": [
         entry("flash_attention", "ray_tpu_torch/csrc/flash_attention.cu", flash_rows[0],
-              counts["flash_attention"]),
+              counts["flash_attention"],
+              {"serve": counts["flash_attention"],
+               "dense_generate": dense_counts["flash_attention"],
+               "vit_forward": vit_counts["forward"]["flash_attention"],
+               "vit_sgd_steps": vit_counts["sgd_steps"]["flash_attention"],
+               "train": train_counts["flash_attention"]}),
         entry("paged_attention", "ray_tpu_torch/csrc/paged_attention.cu", paged_rows[0],
-              counts["paged_attention"]),
+              counts["paged_attention"],
+              {"serve": counts["paged_attention"],
+               "dense_generate": dense_counts["paged_attention"]}),
         entry("flash_attention_bwd", "ray_tpu_torch/csrc/flash_attention_bwd.cu", bwd_rows[0],
-              train_counts["flash_attention_backward"]),
+              train_counts["flash_attention_backward"],
+              {"train": train_counts["flash_attention_backward"],
+               "vit_gradient": vit_counts["gradient"]["flash_attention_backward"],
+               "vit_sgd_steps": vit_counts["sgd_steps"]["flash_attention_backward"]}),
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -7,9 +7,11 @@ JAX or ``ray_tpu``. Entry points run on the card (``device="cuda"``) unless
 the caller asks for the CPU.
 
 Hand-written CUDA kernels carry the main paths: flash attention (prefill,
-``forward`` and, with its backward kernel, training) and paged attention
-(decode); see ``ray_tpu_torch.kernels``. The training step is
-``ray_tpu_torch.parallel.spmd.build_lm_train_step``.
+``forward``, the ViT and, with its backward kernel, training) and paged
+attention (decode over the paged pool and over the dense cache); see
+``ray_tpu_torch.kernels``. The training step is
+``ray_tpu_torch.parallel.spmd.build_lm_train_step``; checkpoints are
+``ray_tpu_torch.train``'s ``save_pytree`` and ``load_pytree``.
 """
 
 from ray_tpu_torch._device import resolve_device
@@ -19,8 +21,12 @@ from ray_tpu_torch.kernels.flash_attention import (
     flash_attention_backward,
 )
 from ray_tpu_torch.kernels.paged_attention import paged_attention
+from ray_tpu_torch.models import mnist, moe, vit
 from ray_tpu_torch.models.generation import (
+    generate,
+    init_kv_cache,
     init_paged_pool,
+    make_decode_fns,
     make_paged_fns,
     sample_token,
     sequence_key,
@@ -52,8 +58,10 @@ from ray_tpu_torch.serve.llm import (
     EngineConfig,
     InferenceEngine,
     KVCacheExhausted,
+    LLMServer,
     TokenStream,
 )
+from ray_tpu_torch.train import load_pytree, save_pytree
 from ray_tpu_torch.weights import params_from_jax
 
 __all__ = [
@@ -68,6 +76,7 @@ __all__ = [
     "FlashAttention",
     "InferenceEngine",
     "KVCacheExhausted",
+    "LLMServer",
     "TokenStream",
     "TransformerConfig",
     "apply_rope",
@@ -76,11 +85,17 @@ __all__ = [
     "flash_attention_backward",
     "forward",
     "gelu",
+    "generate",
+    "init_kv_cache",
     "init_paged_pool",
     "init_params",
     "layer_norm",
+    "load_pytree",
     "loss_fn",
+    "make_decode_fns",
     "make_paged_fns",
+    "mnist",
+    "moe",
     "paged_attention",
     "param_logical_axes",
     "params_from_jax",
@@ -88,6 +103,8 @@ __all__ = [
     "rms_norm",
     "rope_frequencies",
     "sample_token",
+    "save_pytree",
     "sequence_key",
     "swiglu",
+    "vit",
 ]

@@ -8,7 +8,9 @@ per sequence, q (B, H, D), attends that sequence's cache rows
 ``0..positions[b]`` inclusive, read in place from one layer's pool slice
 k/v (n_slots, KV, D) through ``block_tables`` (B, MB) int32: absolute
 position p lives at slot ``block_tables[b, p // block_size] * block_size +
-p % block_size``.
+p % block_size``. A dense cache (``models.generation.make_decode_fns``) is
+such a pool with one block of ``block_size = max_len`` slots per sequence
+and table ``arange(B)``, in place of the reference's ``_cached_attention``.
 """
 
 from __future__ import annotations

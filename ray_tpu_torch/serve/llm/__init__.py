@@ -1,5 +1,7 @@
-"""LLM serving plane of the port: paged KV cache + continuous batching."""
+"""LLM serving plane of the port: paged KV cache, continuous batching and the
+deployment class."""
 
+from ray_tpu_torch.serve.llm.deployment import TINY_MODEL, LLMServer
 from ray_tpu_torch.serve.llm.engine import EngineConfig, InferenceEngine, TokenStream
 from ray_tpu_torch.serve.llm.kv_cache import (
     NULL_BLOCK,
@@ -14,6 +16,8 @@ __all__ = [
     "EngineConfig",
     "InferenceEngine",
     "KVCacheExhausted",
+    "LLMServer",
     "NULL_BLOCK",
+    "TINY_MODEL",
     "TokenStream",
 ]

@@ -1,12 +1,13 @@
 """Carrying JAX parameters into the port.
 
-The port keeps the reference's flat dict of layer-stacked parameters, so
-carrying weights over is a per-array copy with no renaming.
+The port keeps the reference's parameter pytrees (the LM's and ViT's flat
+dicts of layer-stacked arrays, MNIST's nested dicts and lists), so carrying
+weights over is a per-array copy with no renaming.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Any
 
 import numpy as np
 import torch
@@ -25,11 +26,16 @@ def _to_torch(a: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(np.array(a, copy=True))
 
 
-def params_from_jax(
-    params: Mapping[str, np.ndarray], device="cuda"
-) -> Dict[str, torch.Tensor]:
-    """Parameter dict of numpy arrays (as ``np.asarray`` gives them from JAX
-    arrays) -> dict of torch tensors on ``device``, bit-exact for bf16 and
-    fp32."""
-    dev = resolve_device(device)
-    return {name: _to_torch(a).to(dev) for name, a in params.items()}
+def _carry(tree: Any, dev: torch.device) -> Any:
+    if isinstance(tree, dict):
+        return {name: _carry(v, dev) for name, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_carry(v, dev) for v in tree)
+    return _to_torch(tree).to(dev)
+
+
+def params_from_jax(params: Any, device="cuda") -> Any:
+    """A pytree of arrays (dicts, lists and tuples of numpy arrays, as
+    ``np.asarray`` gives them from JAX arrays) -> the same structure of
+    torch tensors on ``device``, bit-exact for bf16 and fp32."""
+    return _carry(params, resolve_device(device))

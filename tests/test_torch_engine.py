@@ -194,3 +194,27 @@ def test_shutdown_fails_streams_typed(params):
 def test_engine_params_must_lie_on_its_device(params):
     with pytest.raises(ValueError):
         InferenceEngine(params, PCFG, ECFG, device="meta", start=False)
+
+
+def test_prefill_bucket_past_max_seq_len_matches_jax_engine(jax_params):
+    """A prompt whose power-of-two prefill bucket (128) runs past a
+    ``max_seq_len`` of 100: the padded rows' rotary positions lie beyond
+    the tables. JAX clamps that gather; the port clamps the positions, and
+    both emit the same tokens."""
+    jcfg = dataclasses.replace(CFG, max_seq_len=100)
+    pcfg = dataclasses.replace(PCFG, max_seq_len=100)
+    kw = dict(ECFG_KW, max_blocks_per_seq=32)
+    prompt = list(np.random.RandomState(1).randint(1, CFG.vocab_size, size=70))
+    eng = InferenceEngine(params_from_jax(jax_params, device="cpu"), pcfg, EngineConfig(**kw),
+                          deployment="bucket", device="cpu")
+    try:
+        got = eng.submit(prompt, max_new_tokens=5).tokens()
+    finally:
+        eng.shutdown()
+    jeng = JInferenceEngine(jax_params, jcfg, JEngineConfig(**kw), deployment="jax-bucket")
+    try:
+        want = jeng.submit(prompt, max_new_tokens=5).tokens()
+    finally:
+        jeng.shutdown()
+    assert want == [76, 86, 86, 3, 65]
+    assert got == want

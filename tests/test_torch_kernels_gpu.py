@@ -79,13 +79,16 @@ EDGE_SHAPES = [
     (1, 129, 129, 8, 1, 256, True),  # group of 8
     (1, 300, 300, 16, 2, 128, False),
 ]
+# ViT-L/16: 197 tokens (196 patches and the class token), 16 heads of 64,
+# bidirectional
+VIT_L16_SHAPE = (4, 197, 197, 16, 16, 64, False)
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize(
     "b,sq,sk,h,kv,d,causal",
     [(1, 1000, 1000, 8, 8, 128, True), (2, 257, 257, 4, 2, 64, False),
-     (1, 130, 130, 4, 4, 256, True)] + EDGE_SHAPES,
+     (1, 130, 130, 4, 4, 256, True), VIT_L16_SHAPE] + EDGE_SHAPES,
 )
 def test_flash_kernel_matches_plain_on_card(cuda, b, sq, sk, h, kv, d, causal):
     gen = torch.Generator(device=cuda).manual_seed(0)
@@ -128,6 +131,31 @@ def test_paged_kernel_matches_plain_on_card(cuda, d, group, bs):
     case = _paged_case(seed=2, b=len(contexts) + 1, mb=mb, bs=bs, kv=2, h=2 * group, d=d,
                        contexts=contexts)
     tq, tk, tv, tt, tp = _to_card(cuda, *case)
+    before = paged_attention.launches
+    out = paged_attention(tq, tk, tv, tt, tp, bs)
+    assert paged_attention.launches == before + 1
+    ref = paged_attention_reference(tq, tk, tv, tt, tp, bs)
+    torch.testing.assert_close(out.float(), ref.float(), **KERNEL_TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bs,contexts,kv,h,d", [
+    (544, [512, 544, 1, 300, 257, 543, 256], 32, 32, 128),  # Llama-2-7B's dense decode
+    (544, [512, 1, 300], 2, 8, 64),
+    (37, [37, 1, 20, 36], 2, 4, 256),
+    (37, [30, 37, 2], 4, 4, 128),
+])
+def test_paged_kernel_over_a_dense_cache_on_card(cuda, bs, contexts, kv, h, d):
+    """The dense cache's layout: one block of ``bs`` slots per sequence
+    (``block_size`` = the cache's length, past the 256-token partition or
+    odd), table ``arange(B)``, ragged contexts inside the block."""
+    b = len(contexts)
+    rs = np.random.RandomState(bs + d)
+    kpool, vpool = (rs.randn(b * bs, kv, d).astype(np.float32) for _ in range(2))
+    q = rs.randn(b, h, d).astype(np.float32)
+    tables = np.arange(b, dtype=np.int32)[:, None]
+    positions = np.array([c - 1 for c in contexts], np.int32)
+    tq, tk, tv, tt, tp = _to_card(cuda, q, kpool, vpool, tables, positions)
     before = paged_attention.launches
     out = paged_attention(tq, tk, tv, tt, tp, bs)
     assert paged_attention.launches == before + 1
@@ -227,6 +255,7 @@ def _bwd_case(cuda, b, s, h, kv, d, causal, seed=0, sk=None):
         (2, 300, 300, 4, 4, 64, True),
         (1, 2048, 2048, 32, 32, 128, False),
         (2, 130, 130, 4, 2, 256, False),
+        VIT_L16_SHAPE,
     ] + EDGE_SHAPES,
 )
 def test_flash_backward_kernel_matches_plain_on_card(cuda, b, sq, sk, h, kv, d, causal):
@@ -350,3 +379,70 @@ def test_entry_runs_on_card(cuda):
     with torch.inference_mode():
         logits = fn(params, tokens)
     assert logits.shape == (2, 256, 50432) and torch.isfinite(logits.float()).all()
+
+
+# Whole-model logits through the kernels against the plain path, both bf16
+# on the card (chip_smoke.py's decode rule): max and mean absolute
+# differences on O(1) logits.
+LOGIT_MAX, LOGIT_MEAN = 0.25, 0.03
+
+
+@pytest.mark.gpu
+def test_dense_generate_through_the_kernels_matches_plain_on_card(cuda):
+    """generate over a dense cache: prefill launches the flash forward once
+    per layer and each decode step the paged kernel once per layer; the
+    prefill and first decode step's logits agree with the plain path."""
+    from ray_tpu_torch.models import generation as G
+    from ray_tpu_torch.models.transformer import TransformerConfig, init_params
+
+    cfg = TransformerConfig(vocab_size=512, d_model=512, n_layers=2, n_heads=4, n_kv_heads=2,
+                            d_ff=1024, max_seq_len=256)
+    params = init_params(torch.Generator(device=cuda).manual_seed(2), cfg, device=cuda)
+    prompt = torch.from_numpy(np.random.RandomState(2).randint(0, 512, (3, 70))).to(cuda)
+    before = (flash_attention.launches, paged_attention.launches)
+    toks = G.generate(params, prompt, cfg, max_new_tokens=6)
+    assert toks.shape == (3, 6) and toks.device.type == "cuda"
+    assert flash_attention.launches - before[0] == cfg.n_layers
+    assert paged_attention.launches - before[1] == cfg.n_layers * 5
+    max_len = 70 + 2
+    results = []
+    for use_kernels in (True, False):
+        prefill, decode = G.make_decode_fns(cfg, max_len, use_kernels=use_kernels)
+        first, cache = prefill(params, prompt, G.init_kv_cache(cfg, 3, max_len, device=cuda))
+        step, cache = decode(params, toks[:, :1], cache)
+        results.append((first, step))
+    for got, want in zip(*results):
+        diff = (got - want).abs()
+        assert diff.max().item() <= LOGIT_MAX and diff.mean().item() <= LOGIT_MEAN
+
+
+@pytest.mark.gpu
+def test_vit_forward_through_the_kernels_matches_plain_on_card(cuda):
+    """A small ViT at head_dim 64 in bf16: one flash launch per layer (one
+    backward launch per layer under autograd), and logits that stray from an
+    fp32 run no further than 1.2x the plain path's do (chip_smoke.py's
+    forward rule)."""
+    import dataclasses
+
+    from ray_tpu_torch.models import vit
+
+    cfg = vit.ViTConfig(image_size=64, patch_size=8, num_classes=100, d_model=256, n_layers=2,
+                        n_heads=4, d_ff=512)
+    params = vit.init_params(torch.Generator(device=cuda).manual_seed(3), cfg, device=cuda)
+    images = torch.randn((8, 64, 64, 3), generator=torch.Generator(device=cuda).manual_seed(4),
+                         device=cuda)
+    with torch.no_grad():
+        before = flash_attention.launches
+        flash = vit.forward(cfg, params, images)
+        assert flash_attention.launches - before == cfg.n_layers
+        plain = vit.forward(cfg, params, images, use_flash=False)
+        exact = vit.forward(dataclasses.replace(cfg, dtype=torch.float32),
+                            {k: v.float() for k, v in params.items()}, images)
+    assert flash.shape == (8, 100) and torch.isfinite(flash).all()
+    assert (flash - exact).abs().mean() <= 1.2 * (plain - exact).abs().mean()
+    leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
+    before = flash_attention_backward.launches
+    loss, _ = vit.loss_fn(cfg, leaves, images, torch.arange(8, device=cuda))
+    loss.backward()
+    assert flash_attention_backward.launches - before == cfg.n_layers
+    assert all(torch.isfinite(v.grad).all() for v in leaves.values())
