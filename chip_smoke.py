@@ -15,6 +15,9 @@ paged-attention decode, and ``generate`` over a dense KV cache (a static
 batch: flash prefill, paged decode over one whole-sequence block per row).
 Then ViT-L/16 (forward, gradients and SGD steps through both flash kernels
 at head_dim 64), the MNIST nets, the MoE MLP and a checkpoint round trip;
+then the RL library (``ray_tpu_torch.rl``, no kernel): every learner update
+on the card against the CPU, PPO learning CartPole at the reference's
+configuration, and two training steps of each other algorithm;
 then the training path: the flash-attention backward kernel against its
 plain version, gradients of a 4-layer GPT-J through flash against plain and
 fp32, and ``build_lm_train_step`` training GPT-J-6B at full width and depth
@@ -126,6 +129,7 @@ def device_profile(fn, steps: int, count_ops=()) -> dict:
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     by_name: dict = {}
     spans: dict = {}
+    launches = 0
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
             continue
@@ -133,6 +137,7 @@ def device_profile(fn, steps: int, count_ops=()) -> dict:
         # their time would count twice
         into = spans if e.is_user_annotation else by_name
         into[e.name] = into.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / steps
+        launches += not e.is_user_annotation and not e.name.startswith(("Memcpy", "Memset"))
     busy = sum(by_name.values())
     by_cat: dict = {}
     for name, ms in by_name.items():
@@ -144,6 +149,11 @@ def device_profile(fn, steps: int, count_ops=()) -> dict:
            "top_kernels_ms": [[name[:80], ms] for name, ms in top]}
     if spans:
         out["annotation_spans_ms"] = spans
+    out["kernels_per_call"] = launches / steps
+    out["copies_per_call"] = {
+        way: sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA
+                 and e.name.startswith("Memcpy") and way in e.name) / steps
+        for way in ("HtoD", "DtoH")}
     if count_ops:
         out["op_counts"] = {op: sum(1 for e in prof.events() if e.name == op) for op in count_ops}
     return out
@@ -984,6 +994,292 @@ def phase_small_models():
         raise AssertionError(f"moe on the card vs the CPU beyond 1e-4: {bad}")
 
 
+# -- RL (ray_tpu_torch.rl): no kernel of the port; fp32 learners ---------
+
+# Every learner update on the card against the same update on the CPU,
+# from the same parameters and batch: losses, metrics, every gradient and
+# every parameter (targets and log-alpha included) after the update.
+RL_ATOL, RL_RTOL = 1e-5, 1e-5
+# PPO on CartPole at the reference's configuration (tests/test_rl.py's bar)
+RL_PPO_TARGET, RL_PPO_ITERS, RL_PPO_STEPS = 150.0, 49, 101_000
+
+
+class _ArrayDataset:
+    """The offline dataset contract: ``materialize()`` and
+    ``iter_batches(batch_size=, drop_last=)`` over columns of rows."""
+
+    def __init__(self, columns):
+        self.columns = columns
+
+    def materialize(self):
+        return self
+
+    def iter_batches(self, batch_size, drop_last=False):
+        n = len(self.columns["obs"])
+        for s in range(0, n - n % batch_size if drop_last else n, batch_size):
+            yield {k: v[s:s + batch_size] for k, v in self.columns.items()}
+
+
+def _rl_batches():
+    """Fixed batches at the main paths' shapes, from numpy seeds."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+
+    def rows(n):
+        return {"obs": rng.normal(size=(n, 4)).astype(np.float32),
+                "actions": rng.integers(0, 2, n).astype(np.int32)}
+
+    ppo = {**rows(512), "logp_old": np.full(512, np.log(0.5), np.float32),
+           "advantages": rng.normal(size=512).astype(np.float32),
+           "returns": rng.normal(scale=5.0, size=512).astype(np.float32)}
+    T, N = 128, 16  # a rollout of 16 envs x 128 steps, the last lane a masked pad
+    vtrace = {"obs": rng.normal(size=(T, N, 4)).astype(np.float32),
+              "actions": rng.integers(0, 2, (T, N)).astype(np.int32),
+              "logp": (np.log(0.5) + rng.normal(scale=0.3, size=(T, N))).astype(np.float32),
+              "rewards": np.ones((T, N), np.float32),
+              "dones": (rng.random((T, N)) < 0.05).astype(np.float32),
+              "last_values": rng.normal(size=N).astype(np.float32),
+              "mask": np.r_[np.ones(N - 1), 0.0].astype(np.float32)}
+    for k, v in vtrace.items():
+        if k in ("mask", "last_values"):
+            v[-1] = 0.0
+        else:
+            v[:, -1] = 0
+
+    def replay(n):
+        return {**rows(n), "rewards": np.ones(n, np.float32),
+                "next_obs": rng.normal(size=(n, 4)).astype(np.float32),
+                "dones": (rng.random(n) < 0.1).astype(np.float32)}
+
+    offline = {**replay(4096), "returns": rng.uniform(0, 60, 4096).astype(np.float32)}
+    ma = {**rows(256), "logp_old": np.full(256, np.log(0.5), np.float32),
+          "advantages": rng.normal(size=256).astype(np.float32),
+          "returns": rng.normal(scale=5.0, size=256).astype(np.float32)}
+    return {"ppo": ppo, "vtrace": vtrace, "dqn": replay(64), "sac": replay(128),
+            "offline": offline, "ma": ma}
+
+
+def _rl_configs(dataset):
+    from ray_tpu_torch import rl
+
+    ma = (rl.MultiAgentPPOConfig()
+          .environment(lambda seed=None: rl.MultiAgentCartPole(num_agents=2, seed=seed))
+          .multi_agent(policies=["p0", "p1"],
+                       policy_mapping_fn=lambda aid: "p0" if aid == "agent_0" else "p1"))
+    return {"ppo": rl.PPOConfig(), "impala": rl.IMPALAConfig(), "appo": rl.APPOConfig(),
+            "dqn_double_q": rl.DQNConfig(), "dqn_max_q": rl.DQNConfig().training(double_q=False),
+            "sac": rl.SACConfig(), "bc": rl.BCConfig().offline_data(dataset),
+            "marwil": rl.MARWILConfig().offline_data(dataset),
+            "cql": rl.CQLConfig().offline_data(dataset), "multi_agent_ppo": ma}
+
+
+def _rl_update(name, algo, batches):
+    """One learner update of ``algo`` -> its metrics."""
+    if name in ("ppo", "bc", "marwil"):
+        b = batches["ppo"] if name == "ppo" else algo._next_batch()
+        return algo._update(algo.params, algo.opt_state, algo._to_device(b))[2]
+    if name in ("impala", "appo"):
+        return algo._update(algo.params, algo.opt_state, algo._to_device(batches["vtrace"]))[2]
+    if name.startswith("dqn"):
+        return algo._update(algo.params, algo.target_params, algo.opt_state,
+                            algo._to_device(batches["dqn"]))[2]
+    if name == "cql":
+        return algo._update(algo.params, algo.target_params, algo.opt_state,
+                            algo._to_device(algo._next_batch()))[3]
+    if name == "sac":
+        return algo._update(algo._to_device(batches["sac"]))
+    loss = algo._update(algo.params["p0"], algo.opt_states["p0"],
+                        algo._to_device(batches["ma"]))[2]
+    return {"loss": loss}
+
+
+def _rl_trees(name, algo):
+    """Every tree an update changes, as numpy: parameters, targets,
+    log-alpha, Adam moments."""
+    from ray_tpu_torch.rl.optim import to_numpy
+
+    state = algo.get_state()
+    trees = {k: v for k, v in state.items() if k in ("params", "target_params", "actor", "q1",
+                                                       "q2", "log_alpha")}
+    if name == "sac":
+        trees["q1_target"] = to_numpy(algo.q1_target)
+        trees["q2_target"] = to_numpy(algo.q2_target)
+    if "opt_state" in state:
+        trees["adam_mu"], trees["adam_nu"] = state["opt_state"]["mu"], state["opt_state"]["nu"]
+    return trees
+
+
+def _record_grads(algo):
+    """Keep a CPU copy of the gradients each optimizer of ``algo`` steps
+    with."""
+    seen = []
+    for attr in ("optimizer", "q_opt", "actor_opt", "alpha_opt"):
+        opt = getattr(algo, attr, None)
+        if opt is None:
+            continue
+
+        def step(params, grads, state, _step=opt.step):
+            grads = list(grads)
+            seen.append([g.detach().cpu().clone() for g in grads])
+            return _step(params, grads, state)
+
+        opt.step = step
+    return seen
+
+
+def _rl_max_diff(got, want) -> float:
+    import numpy as np
+
+    from ray_tpu_torch.rl.models import tree_leaves
+
+    worst = 0.0
+    for a, b in zip(tree_leaves(got), tree_leaves(want)):
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        if a.shape != b.shape or not np.isfinite(a).all():
+            raise AssertionError(f"rl: shapes {a.shape} / {b.shape} or non-finite values")
+        excess = np.abs(a - b) - (RL_ATOL + RL_RTOL * np.abs(b))
+        if excess.max(initial=0.0) > 0:
+            raise AssertionError(f"rl: card vs CPU {np.abs(a - b).max()} beyond "
+                                 f"{RL_ATOL} + {RL_RTOL} * |cpu|")
+        worst = max(worst, float(np.abs(a - b).max(initial=0.0)))
+    return worst
+
+
+def _rl_update_checks(dataset, batches) -> dict:
+    from ray_tpu_torch.rl.models import tree_leaves
+
+    rows = {}
+    for name, cfg in _rl_configs(dataset).items():
+        cpu_algo = cfg.build(device="cpu")
+        card_algo = cfg.build(device="cuda")
+        card_algo.set_state(cpu_algo.get_state())
+        # target networks apart from the online ones (halved, Q head
+        # negated), so the target terms, double-Q's argmax and the Polyak
+        # steps show
+        for a in (cpu_algo, card_algo):
+            for attr in ("target_params", "q1_target", "q2_target"):
+                if hasattr(a, attr):
+                    for t in tree_leaves(getattr(a, attr)):
+                        t.mul_(0.5)
+                    getattr(a, attr)["pi"]["w"].neg_()
+        grads = [_record_grads(a) for a in (cpu_algo, card_algo)]
+        metrics = [_rl_update(name, a, batches) for a in (cpu_algo, card_algo)]
+        torch.cuda.synchronize()
+        m_cpu = {k: float(v) for k, v in metrics[0].items()}
+        m_card = {k: float(v) for k, v in metrics[1].items()}
+        trees = [_rl_trees(name, a) for a in (cpu_algo, card_algo)]
+        if sorted(m_cpu) != sorted(m_card) or len(grads[0]) != len(grads[1]) or not grads[0]:
+            raise AssertionError(f"rl {name}: metrics {sorted(m_card)} / grads "
+                                 f"{len(grads[1])} against the CPU's")
+        rows[name] = {
+            "metrics_card": m_card,
+            "metrics_max_abs_err": _rl_max_diff(m_card, m_cpu),
+            "grads_max_abs_err": _rl_max_diff(grads[1], grads[0]),
+            "trees_after_max_abs_err": {k: _rl_max_diff(trees[1][k], trees[0][k])
+                                        for k in sorted(trees[0])},
+        }
+    return rows
+
+
+def _rl_ppo_learns(smi) -> None:
+    from ray_tpu_torch import rl
+
+    cfg = (rl.PPOConfig().environment("CartPole-v1")
+           .env_runners(num_env_runners=0, num_envs_per_env_runner=16,
+                        rollout_fragment_length=128)
+           .debugging(seed=0))
+    algo = cfg.build(device="cuda")
+    sample = algo.runners.sample
+    sample_s = []
+
+    def timed_sample(params):
+        t0 = time.perf_counter()
+        out = sample(params)
+        sample_s.append(time.perf_counter() - t0)
+        return out
+
+    update = algo._update
+    update_s = []
+
+    def timed_update(*args):
+        t0 = time.perf_counter()
+        out = update(*args)
+        update_s.append(time.perf_counter() - t0)
+        return out
+
+    algo.runners.sample, algo._update = timed_sample, timed_update
+    best, step_s, iters = 0.0, [], 0
+    for iters in range(1, RL_PPO_ITERS + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = algo.train()
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        best = max(best, result["episode_return_mean"])
+        if best >= RL_PPO_TARGET:
+            break
+    steps = result["num_env_steps_sampled_lifetime"]
+    algo.runners.sample, algo._update = sample, update
+    profile = device_profile(algo.train, steps=1)
+    per_step = 16 * 128
+    mean_ms = 1e3 * sum(step_s) / len(step_s)
+    row = dict(config="PPOConfig(), 16 envs x 128 steps, hidden (64, 64), 8 epochs, "
+                      "minibatch 512, seed 0", card=smi, iterations=iters, best_return=best,
+               env_steps=steps, target=[RL_PPO_TARGET, RL_PPO_ITERS, RL_PPO_STEPS],
+               training_step_ms=mean_ms, training_step_ms_first=1e3 * step_s[0],
+               training_step_ms_median=1e3 * sorted(step_s)[len(step_s) // 2],
+               sample_ms=1e3 * sum(sample_s) / len(sample_s),
+               learn_ms=mean_ms - 1e3 * sum(sample_s) / len(sample_s),
+               updates_ms=1e3 * sum(update_s) / len(step_s),
+               update_calls_per_step=len(update_s) / len(step_s),
+               env_steps_per_s=per_step / (mean_ms / 1e3),
+               profiled_step=profile,
+               final={k: result[k] for k in ("total_loss", "policy_loss", "vf_loss", "entropy")})
+    log("rl_ppo_cartpole", **row)
+    if best < RL_PPO_TARGET or steps > RL_PPO_STEPS:
+        raise AssertionError(f"rl: PPO reached {best} (target {RL_PPO_TARGET}) in {iters} "
+                             f"iterations, {steps} env steps")
+    return row
+
+
+def _rl_two_steps(dataset) -> dict:
+    out = {}
+    for name, cfg in _rl_configs(dataset).items():
+        if name in ("ppo", "dqn_max_q"):
+            continue
+        algo = cfg.build(device="cuda")
+        t0 = time.perf_counter()
+        results = [algo.train() for _ in range(2)]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        last = results[-1]
+        numbers = {k: v for k, v in last.items() if isinstance(v, float)}
+        out[name] = {"seconds": wall, "last": numbers}
+        if not all(math.isfinite(v) for v in numbers.values()):
+            raise AssertionError(f"rl {name}: non-finite metrics {numbers}")
+        if name in ("dqn_double_q", "sac") and not any(
+                k in last for k in ("td_loss", "q1_loss")):
+            raise AssertionError(f"rl {name}: no update in two steps (learning_starts)")
+    return out
+
+
+def phase_rl(smi) -> None:
+    """The RL library: every learner update on the card against the CPU,
+    PPO learning CartPole at the reference's configuration, and two
+    training steps of each other algorithm."""
+    batches = _rl_batches()
+    dataset = _ArrayDataset(batches["offline"])
+    t0 = time.perf_counter()
+    updates = _rl_update_checks(dataset, batches)
+    log("rl_updates", card=smi, tol=f"|card - cpu| <= {RL_ATOL} + {RL_RTOL} * |cpu|",
+        seconds=time.perf_counter() - t0, cases=updates)
+    _rl_ppo_learns(smi)
+    t0 = time.perf_counter()
+    two = _rl_two_steps(dataset)
+    log("rl_two_steps", seconds=time.perf_counter() - t0, algorithms=two)
+
+
 def phase_train_check():
     """Full-width GPT-J at 4 layers (bench.py's cut), B=1, S=2048."""
     import dataclasses
@@ -1141,6 +1437,14 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase_small_models()
+    from ray_tpu_torch.kernels.flash_attention import flash_attention, flash_attention_backward
+    from ray_tpu_torch.kernels.paged_attention import paged_attention
+
+    for kern in (flash_attention, flash_attention_backward, paged_attention):
+        kern.launches = 0
+    phase_rl(smi)
+    rl_counts = {kern.__name__: kern.launches
+                 for kern in (flash_attention, flash_attention_backward, paged_attention)}
     bwd_rows = phase_kernels_bwd()
     phase_train_check()
     gc.collect()
@@ -1167,16 +1471,18 @@ def main() -> int:
                "dense_generate": dense_counts["flash_attention"],
                "vit_forward": vit_counts["forward"]["flash_attention"],
                "vit_sgd_steps": vit_counts["sgd_steps"]["flash_attention"],
-               "train": train_counts["flash_attention"]}),
+               "train": train_counts["flash_attention"], "rl": rl_counts["flash_attention"]}),
         entry("paged_attention", "ray_tpu_torch/csrc/paged_attention.cu", paged_rows[0],
               counts["paged_attention"],
               {"serve": counts["paged_attention"],
-               "dense_generate": dense_counts["paged_attention"]}),
+               "dense_generate": dense_counts["paged_attention"],
+               "rl": rl_counts["paged_attention"]}),
         entry("flash_attention_bwd", "ray_tpu_torch/csrc/flash_attention_bwd.cu", bwd_rows[0],
               train_counts["flash_attention_backward"],
               {"train": train_counts["flash_attention_backward"],
                "vit_gradient": vit_counts["gradient"]["flash_attention_backward"],
-               "vit_sgd_steps": vit_counts["sgd_steps"]["flash_attention_backward"]}),
+               "vit_sgd_steps": vit_counts["sgd_steps"]["flash_attention_backward"],
+               "rl": rl_counts["flash_attention_backward"]}),
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -11,7 +11,9 @@ Hand-written CUDA kernels carry the main paths: flash attention (prefill,
 attention (decode over the paged pool and over the dense cache); see
 ``ray_tpu_torch.kernels``. The training step is
 ``ray_tpu_torch.parallel.spmd.build_lm_train_step``; checkpoints are
-``ray_tpu_torch.train``'s ``save_pytree`` and ``load_pytree``.
+``ray_tpu_torch.train``'s ``save_pytree`` and ``load_pytree``. The RL
+library (PPO, IMPALA, APPO, DQN, SAC, BC, MARWIL, CQL, multi-agent PPO;
+no kernel) is ``ray_tpu_torch.rl``.
 """
 
 from ray_tpu_torch._device import resolve_device

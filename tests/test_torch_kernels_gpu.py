@@ -446,3 +446,61 @@ def test_vit_forward_through_the_kernels_matches_plain_on_card(cuda):
     loss.backward()
     assert flash_attention_backward.launches - before == cfg.n_layers
     assert all(torch.isfinite(v.grad).all() for v in leaves.values())
+
+
+# the RL learners launch no kernel of the port: their updates on the card
+# against the same update on the CPU, from the same parameters and batch,
+# fp32 (TF32 off, torch's default): losses, metrics and parameters to 1e-5
+
+
+def _rl_pair(cfg, cuda):
+    cpu_algo = cfg.build(device="cpu")
+    card_algo = cfg.build(device=cuda)
+    card_algo.set_state(cpu_algo.get_state())
+    return cpu_algo, card_algo
+
+
+def _assert_rl_update_alike(cpu_algo, card_algo, cpu_metrics, card_metrics):
+    from ray_tpu_torch.rl.models import tree_leaves
+
+    assert sorted(cpu_metrics) == sorted(card_metrics)
+    for k in cpu_metrics:
+        torch.testing.assert_close(card_metrics[k].cpu(), cpu_metrics[k], atol=1e-5, rtol=1e-5)
+    for a, b in zip(tree_leaves(card_algo.params), tree_leaves(cpu_algo.params)):
+        assert a.device.type == "cuda"
+        torch.testing.assert_close(a.detach().cpu(), b.detach(), atol=1e-5, rtol=0)
+
+
+@pytest.mark.gpu
+def test_ppo_update_on_card_matches_cpu(cuda):
+    from ray_tpu_torch.rl import PPOConfig
+
+    cpu_algo, card_algo = _rl_pair(PPOConfig(), cuda)
+    rng = np.random.default_rng(0)
+    batch = {"obs": rng.normal(size=(512, 4)).astype(np.float32),
+             "actions": rng.integers(0, 2, 512).astype(np.int32),
+             "logp_old": np.full(512, np.log(0.5), np.float32),
+             "advantages": rng.normal(size=512).astype(np.float32),
+             "returns": rng.normal(scale=5.0, size=512).astype(np.float32)}
+    outs = [a._update(a.params, a.opt_state, a._to_device(batch))[2]
+            for a in (cpu_algo, card_algo)]
+    _assert_rl_update_alike(cpu_algo, card_algo, *outs)
+
+
+@pytest.mark.gpu
+def test_impala_update_on_card_matches_cpu(cuda):
+    from ray_tpu_torch.rl import IMPALAConfig
+
+    cpu_algo, card_algo = _rl_pair(IMPALAConfig(), cuda)
+    rng = np.random.default_rng(1)
+    T, N = 128, 16
+    batch = {"obs": rng.normal(size=(T, N, 4)).astype(np.float32),
+             "actions": rng.integers(0, 2, (T, N)).astype(np.int32),
+             "logp": np.full((T, N), np.log(0.5), np.float32),
+             "rewards": np.ones((T, N), np.float32),
+             "dones": (rng.random((T, N)) < 0.05).astype(np.float32),
+             "last_values": rng.normal(size=N).astype(np.float32),
+             "mask": np.r_[np.ones(N - 1), 0.0].astype(np.float32)}
+    outs = [a._update(a.params, a.opt_state, a._to_device(batch))[2]
+            for a in (cpu_algo, card_algo)]
+    _assert_rl_update_alike(cpu_algo, card_algo, *outs)

@@ -159,7 +159,7 @@ def test_port_imports_neither_jax_nor_ray_tpu():
 def test_import_leaves_jax_and_ray_tpu_out():
     code = (
         "import sys, ray_tpu_torch, ray_tpu_torch.serve.llm.engine,"
-        " ray_tpu_torch.parallel.spmd, ray_tpu_torch.entry;"
+        " ray_tpu_torch.parallel.spmd, ray_tpu_torch.entry, ray_tpu_torch.rl;"
         "bad=[m for m in sys.modules if m.split('.')[0] in ('jax','ray_tpu')];"
         "print(bad); sys.exit(1 if bad else 0)"
     )
