@@ -19,9 +19,27 @@ then the RL library (``ray_tpu_torch.rl``, no kernel): every learner update
 on the card against the CPU, PPO learning CartPole at the reference's
 configuration, and two training steps of each other algorithm;
 then the training path: the flash-attention backward kernel against its
-plain version, gradients of a 4-layer GPT-J through flash against plain and
-fp32, and ``build_lm_train_step`` training GPT-J-6B at full width and depth
-for 5 AdamW steps on one fixed batch.
+plain version; phase ``ring_schedule``: ring attention's whole per-hop
+schedule in one process (4 sequence shards of 8192 tokens, causal, at
+Llama-2-7B's and GPT-J's attention) through both flash kernels, held
+against the same kernels over the whole sequence and against the plain
+versions; gradients of a 4-layer GPT-J through flash against plain and
+fp32; ``build_lm_train_step`` training GPT-J-6B at full width and depth
+for 5 AdamW steps on one fixed batch; and phase ``spmd_mesh1``: the same
+model through the mesh entry points (``distributed.initialize``,
+``create_mesh()``, ``build_lm_train_step(cfg, mesh)``, ``shard_batch``)
+on a one-rank NCCL group, 3 steps from the same seed and batch, held to
+the single-device steps. At one rank every axis is trivial, so no
+collective runs there: the phase shows the mesh path's set-up and its
+step at full size, not NCCL or the gathers. Phase ``spmd_tensor2``: two
+rank processes sharing the card through gloo on CUDA tensors (NCCL
+refuses two ranks on one device) train GPT-J's width at 4 layers on a
+tensor=2 mesh, held to the single-device step; this is the phase where
+collectives (gloo's all-reduces, staged through the host) run on the
+card. (The other collectives of the mesh path, and gloo's send and
+receive, which take no CUDA tensors, are held against the JAX package on
+CPU gloo ranks in the tests, and run over NCCL only on a machine with
+four cards: ``tests/test_torch_kernels_gpu.py -k four_cards``.)
 Every phase prints one JSON object; any failure or missed tolerance raises
 (non-zero exit). The last two lines are the per-kernel summary and the
 result line read by automation:
@@ -1391,7 +1409,318 @@ def phase_train(smi, steps: int = 5):
         raise AssertionError(f"train: peak {peak_gib} GiB not under capacity {capacity_gib} GiB")
     if profile.get("op_counts", {}).get("aten::select_backward", 0):
         raise AssertionError(f"train: select_backward ran in a step: {profile['op_counts']}")
+    return counts, row
+
+
+# Ring attention's per-hop schedule in one process: RING_SHARDS sequence
+# shards of RING_SEQ // RING_SHARDS tokens, causal, bf16, B=1, at
+# Llama-2-7B's attention (32 heads of 128) and GPT-J's (16 heads of 256).
+# out, lse, dQ, dK and dV of the ring (kernels 1 and 1b per hop, merged in
+# fp32) are held to the ATOL/RTOL rule against the same kernels over the
+# whole sequence and against the plain versions (run a few heads at a
+# time: one (S, S) fp32 score matrix per head is 256 MiB).
+RING_SEQ, RING_SHARDS = 8192, 4
+RING_CASES = [("llama2_7b", 32, 32, 128), ("gptj_6b", 16, 16, 256)]
+RING_PLAIN_HEADS = 4
+
+
+def _plain_by_heads(q, k, v, out, lse, d_out):
+    """The plain forward and backward over the whole sequence, a few heads
+    at a time (no GQA in RING_CASES: kv head h serves query head h)."""
+    from ray_tpu_torch.kernels.flash_attention import (
+        flash_attention_backward_reference,
+        flash_attention_reference,
+    )
+
+    outs, lses, grads = [], [], []
+    for h0 in range(0, q.shape[2], RING_PLAIN_HEADS):
+        cut = slice(h0, h0 + RING_PLAIN_HEADS)
+        o, l = flash_attention_reference(q[:, :, cut], k[:, :, cut], v[:, :, cut], causal=True)
+        outs.append(o)
+        lses.append(l)
+        # the backward from the kernel's out and lse, as the ring's hops take them
+        grads.append(flash_attention_backward_reference(
+            q[:, :, cut], k[:, :, cut], v[:, :, cut], out[:, :, cut], lse[:, cut],
+            d_out[:, :, cut], causal=True))
+        del o, l
+        torch.cuda.empty_cache()
+    return (torch.cat(outs, 2), torch.cat(lses, 1),
+            [torch.cat([g[i] for g in grads], 2) for i in range(3)])
+
+
+def phase_ring_schedule():
+    """The ring's whole per-hop schedule (``ring_schedule_forward`` /
+    ``_backward``, the code the distributed ring runs per hop) over
+    RING_SHARDS shards; counts the kernel launches of the ring run."""
+    from ray_tpu_torch.kernels.flash_attention import (
+        flash_attention,
+        flash_attention_backward,
+    )
+    from ray_tpu_torch.ops.attention import ring_schedule_backward, ring_schedule_forward
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    launches = {"flash_attention": 0, "flash_attention_backward": 0}
+    rows = []
+    n, s = RING_SHARDS, RING_SEQ // RING_SHARDS
+    for name, h, kv, d in RING_CASES:
+        q, d_out = (torch.randn((1, RING_SEQ, h, d), generator=gen, device="cuda").bfloat16()
+                    for _ in range(2))
+        k, v = (torch.randn((1, RING_SEQ, kv, d), generator=gen, device="cuda").bfloat16()
+                for _ in range(2))
+        qs, ks, vs, dos = ([c.contiguous() for c in x.chunk(n, dim=1)] for x in (q, k, v, d_out))
+        flash_attention.launches = flash_attention_backward.launches = 0
+        fwd = ring_schedule_forward(qs, ks, vs, causal=True)
+        outs, lses = [o for o, _ in fwd], [l for _, l in fwd]
+        grads = ring_schedule_backward(qs, ks, vs, outs, lses, dos, causal=True)
+        torch.cuda.synchronize()
+        ran = (flash_attention.launches, flash_attention_backward.launches)
+        launches["flash_attention"] += ran[0]
+        launches["flash_attention_backward"] += ran[1]
+        ring = {"out": torch.cat(outs, 1), "lse": torch.cat(lses, 2),
+                "dq": torch.cat([g[0] for g in grads], 1), "dk": torch.cat([g[1] for g in grads], 1),
+                "dv": torch.cat([g[2] for g in grads], 1)}
+        whole_out, whole_lse = flash_attention(q, k, v, causal=True)
+        whole = dict(zip(("dq", "dk", "dv"), flash_attention_backward(
+            q, k, v, whole_out, whole_lse, d_out, causal=True)), out=whole_out, lse=whole_lse)
+        plain_out, plain_lse, plain_grads = _plain_by_heads(q, k, v, ring["out"], ring["lse"], d_out)
+        plain = dict(zip(("dq", "dk", "dv"), plain_grads), out=plain_out, lse=plain_lse)
+        errors = {key: {"vs_whole_kernel": max_err(ring[key], whole[key], f"ring {name} {key} vs whole"),
+                        "vs_plain": max_err(ring[key], plain[key], f"ring {name} {key} vs plain"),
+                        "rel_vs_whole": rel_err(ring[key], whole[key])}
+                  for key in ("out", "lse", "dq", "dk", "dv")}
+        del plain, plain_grads, plain_out, plain_lse
+        torch.cuda.empty_cache()
+        # per-hop kernel time: the diagonal hop is causal, a past hop full
+        hop_fwd = {c: cuda_ms(lambda c=c: flash_attention(qs[1], ks[1], vs[1], causal=c))
+                   for c in (True, False)}
+        hop_bwd = {c: cuda_ms(lambda c=c: flash_attention_backward(
+            qs[1], ks[1], vs[1], outs[1], lses[1], dos[1], causal=c)) for c in (True, False)}
+        diagonal, past = n, n * (n - 1) // 2
+        row = dict(case=name, shards=n, shard_tokens=s, heads=h, kv_heads=kv, head_dim=d,
+                   causal=True, launches_fwd_bwd=list(ran), tol=TOL_RULE, errors=errors,
+                   hop_ms={"fwd_causal": hop_fwd[True], "fwd_full": hop_fwd[False],
+                           "bwd_causal": hop_bwd[True], "bwd_full": hop_bwd[False]},
+                   summed_hop_kernel_ms={
+                       "fwd": diagonal * hop_fwd[True] + past * hop_fwd[False],
+                       "bwd": diagonal * hop_bwd[True] + past * hop_bwd[False]},
+                   schedule_ms={"fwd": cuda_ms(lambda: ring_schedule_forward(qs, ks, vs), iters=5),
+                                "bwd": cuda_ms(lambda: ring_schedule_backward(
+                                    qs, ks, vs, outs, lses, dos), iters=5)},
+                   whole_kernel_ms={"fwd": cuda_ms(lambda: flash_attention(q, k, v, causal=True)),
+                                    "bwd": cuda_ms(lambda: flash_attention_backward(
+                                        q, k, v, whole_out, whole_lse, d_out, causal=True))})
+        log("ring_schedule", **row)
+        if list(ran) != [diagonal + past] * 2:
+            raise AssertionError(f"ring {name}: launches {ran}, want {diagonal + past} each "
+                                 f"({diagonal} diagonal and {past} past hops; no future hop)")
+        rows.append(row)
+        del q, k, v, d_out, qs, ks, vs, dos, fwd, outs, lses, grads, ring, whole
+        torch.cuda.empty_cache()
+    return launches, rows
+
+
+# spmd_mesh1 against phase_train's single-device steps from the same seeded
+# weights and batch. At one rank every group is None: the mesh step runs
+# the single-device step's operations in the same order (one block body,
+# one loss, one norm), so it is expected to match it exactly. The limit
+# leaves a few fp32 steps for reduction order. For scale: the same phase
+# with the vocab-parallel cross-entropy at one rank (max, sum of
+# exponentials, log in fp32, in place of torch.logsumexp; an fp32
+# rounding-level change) read 2.5e-5 on the loss and 2.3e-4 on the norm
+# on an H100, and fails it. Per step, relative to the single-device value:
+SPMD_LOSS_RTOL, SPMD_NORM_RTOL = 1e-6, 1e-6
+
+
+def phase_spmd_mesh1(smi, single: dict, steps: int = 3):
+    """``build_lm_train_step(GPTJ_6B, mesh)`` at full width and depth over
+    ``create_mesh()`` on a one-rank NCCL group, from phase_train's seed
+    and batch: ``steps`` AdamW steps held to phase_train's losses and
+    norms. Every axis is trivial at one rank, so no collective runs."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from ray_tpu_torch.kernels.flash_attention import flash_attention, flash_attention_backward
+    from ray_tpu_torch.kernels.paged_attention import paged_attention
+    from ray_tpu_torch.models.transformer import GPTJ_6B
+    from ray_tpu_torch.parallel import distributed
+    from ray_tpu_torch.parallel.mesh import create_mesh
+    from ray_tpu_torch.parallel.spmd import build_lm_train_step
+
+    cfg = GPTJ_6B
+    distributed.initialize(f"127.0.0.1:{distributed.free_port()}", 1, 0, device="cuda")
+    try:
+        mesh = create_mesh()
+        torch.cuda.reset_peak_memory_stats()
+        bundle = build_lm_train_step(cfg, mesh, learning_rate=1e-4)
+        state = bundle.init_state(0)
+        rng = np.random.default_rng(0)
+        tokens = rng.integers(0, cfg.vocab_size - 1, (1, 2048), dtype=np.int32)
+        tok, tgt = bundle.shard_batch(tokens, np.roll(tokens, -1, axis=1))
+        kernels = (flash_attention, flash_attention_backward, paged_attention)
+        for kern in kernels:
+            kern.launches = 0
+        losses, norms, step_ms, per_step = [], [], [], []
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        for _ in range(steps):
+            before = [kern.launches for kern in kernels]
+            start.record()
+            state, metrics = bundle.step_fn(state, tok, tgt)
+            end.record()
+            torch.cuda.synchronize()
+            step_ms.append(start.elapsed_time(end))
+            losses.append(metrics["loss"].item())
+            norms.append(metrics["grad_norm"].item())
+            per_step.append([kern.launches - b for kern, b in zip(kernels, before)])
+        counts = {kern.__name__: kern.launches for kern in kernels}
+        row = dict(config="GPTJ_6B", mesh=mesh.shape, backend=dist.get_backend(),
+                   world=dist.get_world_size(), tokens=[1, 2048], remat=cfg.remat,
+                   losses=losses, grad_norms=norms, single_device_losses=single["losses"][:steps],
+                   single_device_grad_norms=single["grad_norms"][:steps],
+                   loss_rel_diff=[abs(a - b) / abs(b) for a, b in zip(losses, single["losses"])],
+                   grad_norm_rel_diff=[abs(a - b) / abs(b) for a, b in zip(norms, single["grad_norms"])],
+                   tol=dict(loss_rtol=SPMD_LOSS_RTOL, grad_norm_rtol=SPMD_NORM_RTOL),
+                   step_ms=step_ms, single_device_step_ms=single["step_ms"][:steps],
+                   peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                   launches_per_step=per_step, launches=counts, card=smi)
+        log("spmd_mesh1", **row)
+    finally:
+        distributed.shutdown()
+    want = [2 * cfg.n_layers, cfg.n_layers, 0]
+    if any(p != want for p in per_step):
+        raise AssertionError(f"spmd_mesh1: launches per step {per_step}, want {want} each")
+    if not all(math.isfinite(x) for x in losses + norms):
+        raise AssertionError(f"spmd_mesh1: non-finite loss or grad_norm: {losses} {norms}")
+    if any(d > SPMD_LOSS_RTOL for d in row["loss_rel_diff"]) or \
+            any(d > SPMD_NORM_RTOL for d in row["grad_norm_rel_diff"]):
+        raise AssertionError(f"spmd_mesh1: beyond the single-device step: {row['loss_rel_diff']} "
+                             f"{row['grad_norm_rel_diff']}")
     return counts
+
+
+# spmd_tensor2: two ranks share the one card through gloo on CUDA tensors
+# (NCCL refuses two ranks on one device; gloo's all-reduce, the only
+# collective of a tensor=2 mesh, stages CUDA tensors through the host).
+# GPT-J-6B's width at TENSOR2_LAYERS layers, B=1, S=2048, remat, AdamW,
+# 3 steps, each rank holding its 8 heads, half the MLP and half the
+# vocabulary, against the single-device step from the same seed and
+# batch. Tensor parallelism rounds each rank's partial sums (attention's
+# and the MLP's outputs, the backward's dL/dh) to bf16 before the
+# all-reduce adds them, where one card's GEMM adds in fp32 and rounds
+# once: about one bf16 step (2**-8 relative) more noise per block,
+# averaged over 2048 tokens in the loss and over every element in the
+# norm. On an H100 the three steps read at most 2.1e-5 on the loss and
+# 3.1e-4 on the norm; the limits are about 10x those. Per step, relative
+# to the single-device value:
+TENSOR2_LAYERS = 4
+TENSOR2_LOSS_RTOL, TENSOR2_NORM_RTOL = 2e-4, 3e-3
+
+
+def _gptj_steps(bundle, steps: int):
+    """``steps`` steps of ``bundle`` from seed 0 on phase_train's batch:
+    losses, grad norms, step ms (CUDA events) and flash launches per step."""
+    import numpy as np
+
+    from ray_tpu_torch.kernels.flash_attention import flash_attention, flash_attention_backward
+
+    state = bundle.init_state(0)
+    tokens = np.random.default_rng(0).integers(0, bundle.config.vocab_size - 1, (1, 2048),
+                                               dtype=np.int32)
+    tok, tgt = bundle.shard_batch(tokens, np.roll(tokens, -1, axis=1))
+    out = {"losses": [], "grad_norms": [], "step_ms": [], "launches_per_step": []}
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    for _ in range(steps):
+        flash_attention.launches = flash_attention_backward.launches = 0
+        start.record()
+        state, metrics = bundle.step_fn(state, tok, tgt)
+        end.record()
+        torch.cuda.synchronize()
+        out["step_ms"].append(start.elapsed_time(end))
+        out["losses"].append(metrics["loss"].item())
+        out["grad_norms"].append(metrics["grad_norm"].item())
+        out["launches_per_step"].append([flash_attention.launches, flash_attention_backward.launches])
+    out["wq_shape"] = list(state["params"]["wq"].shape)
+    return out
+
+
+def _tensor2_rank(rank: int, address: str, steps: int, results) -> None:
+    """One rank of phase_spmd_tensor2, in its own process."""
+    import dataclasses
+
+    from ray_tpu_torch.models.transformer import GPTJ_6B
+    from ray_tpu_torch.parallel import distributed
+    from ray_tpu_torch.parallel.mesh import MeshConfig, create_mesh
+    from ray_tpu_torch.parallel.spmd import build_lm_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    distributed.initialize(address, 2, rank, device="cuda", local_rank=0, backend="gloo")
+    try:
+        mesh = create_mesh(MeshConfig(tensor=2))
+        cfg = dataclasses.replace(GPTJ_6B, n_layers=TENSOR2_LAYERS)
+        bundle = build_lm_train_step(cfg, mesh, learning_rate=1e-4)
+        results.put((rank, _gptj_steps(bundle, steps)))
+    finally:
+        distributed.shutdown()
+
+
+def phase_spmd_tensor2(smi, steps: int = 3):
+    """A tensor=2 mesh of two rank processes on the one card (gloo on CUDA
+    tensors), held to the single-device step; both ranks' flash launches."""
+    import dataclasses
+    import multiprocessing
+    import queue
+
+    from ray_tpu_torch.models.transformer import GPTJ_6B
+    from ray_tpu_torch.parallel import distributed
+    from ray_tpu_torch.parallel.spmd import build_lm_train_step
+
+    cfg = dataclasses.replace(GPTJ_6B, n_layers=TENSOR2_LAYERS)
+    single = _gptj_steps(build_lm_train_step(cfg, learning_rate=1e-4), steps)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ctx = multiprocessing.get_context("spawn")
+    results = ctx.Queue()
+    address = f"127.0.0.1:{distributed.free_port()}"
+    procs = [ctx.Process(target=_tensor2_rank, args=(r, address, steps, results)) for r in range(2)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    try:
+        got = dict(results.get(timeout=300) for _ in procs)
+    except queue.Empty:
+        raise AssertionError(f"spmd_tensor2: a rank gave no result (exit codes "
+                             f"{[p.exitcode for p in procs]})") from None
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    seconds = time.perf_counter() - t0
+    ranks = [got[0], got[1]]
+    loss_diff = [abs(a - b) / abs(b) for a, b in zip(ranks[0]["losses"], single["losses"])]
+    norm_diff = [abs(a - b) / abs(b) for a, b in zip(ranks[0]["grad_norms"], single["grad_norms"])]
+    row = dict(config=f"GPTJ_6B, n_layers={TENSOR2_LAYERS}", mesh={"tensor": 2}, backend="gloo",
+               processes=2, card=smi, tokens=[1, 2048], remat=cfg.remat, single_device=single,
+               ranks=ranks, loss_rel_diff=loss_diff, grad_norm_rel_diff=norm_diff,
+               tol=dict(loss_rtol=TENSOR2_LOSS_RTOL, grad_norm_rtol=TENSOR2_NORM_RTOL),
+               seconds=seconds)
+    log("spmd_tensor2", **row)
+    want = [[2 * cfg.n_layers, cfg.n_layers]] * steps
+    for r in ranks:
+        if r["launches_per_step"] != want:
+            raise AssertionError(f"spmd_tensor2: flash launches per step {r['launches_per_step']}, want {want}")
+        if r["wq_shape"] != [cfg.n_layers, cfg.d_model, cfg.n_heads // 2, cfg.head_dim]:
+            raise AssertionError(f"spmd_tensor2: wq shard {r['wq_shape']} is not half the heads")
+    if ranks[0]["losses"] != ranks[1]["losses"] or ranks[0]["grad_norms"] != ranks[1]["grad_norms"]:
+        raise AssertionError("spmd_tensor2: the two ranks disagree on loss or grad_norm")
+    if not all(math.isfinite(x) for x in ranks[0]["losses"] + ranks[0]["grad_norms"]):
+        raise AssertionError("spmd_tensor2: non-finite loss or grad_norm")
+    if any(d > TENSOR2_LOSS_RTOL for d in loss_diff) or any(d > TENSOR2_NORM_RTOL for d in norm_diff):
+        raise AssertionError(f"spmd_tensor2: beyond the single-device step: {loss_diff} {norm_diff}")
+    return {"flash_attention": sum(s[0] for r in ranks for s in r["launches_per_step"]),
+            "flash_attention_backward": sum(s[1] for r in ranks for s in r["launches_per_step"])}
 
 
 def main() -> int:
@@ -1446,10 +1775,18 @@ def main() -> int:
     rl_counts = {kern.__name__: kern.launches
                  for kern in (flash_attention, flash_attention_backward, paged_attention)}
     bwd_rows = phase_kernels_bwd()
+    ring_counts, _ = phase_ring_schedule()
     phase_train_check()
     gc.collect()
     torch.cuda.empty_cache()
-    train_counts = phase_train(smi)
+    train_counts, train_row = phase_train(smi)
+    # the single-device state is gone with phase_train's frame
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh1_counts = phase_spmd_mesh1(smi, train_row)
+    gc.collect()
+    torch.cuda.empty_cache()
+    tensor2_counts = phase_spmd_tensor2(smi)
     log("total", seconds=time.perf_counter() - t_start)
 
     def entry(name, source, row, launches, by_path):
@@ -1471,18 +1808,25 @@ def main() -> int:
                "dense_generate": dense_counts["flash_attention"],
                "vit_forward": vit_counts["forward"]["flash_attention"],
                "vit_sgd_steps": vit_counts["sgd_steps"]["flash_attention"],
-               "train": train_counts["flash_attention"], "rl": rl_counts["flash_attention"]}),
+               "train": train_counts["flash_attention"], "rl": rl_counts["flash_attention"],
+               "ring_schedule": ring_counts["flash_attention"],
+               "spmd_mesh1": mesh1_counts["flash_attention"],
+               "spmd_tensor2": tensor2_counts["flash_attention"]}),
         entry("paged_attention", "ray_tpu_torch/csrc/paged_attention.cu", paged_rows[0],
               counts["paged_attention"],
               {"serve": counts["paged_attention"],
                "dense_generate": dense_counts["paged_attention"],
-               "rl": rl_counts["paged_attention"]}),
+               "rl": rl_counts["paged_attention"],
+               "spmd_mesh1": mesh1_counts["paged_attention"]}),
         entry("flash_attention_bwd", "ray_tpu_torch/csrc/flash_attention_bwd.cu", bwd_rows[0],
               train_counts["flash_attention_backward"],
               {"train": train_counts["flash_attention_backward"],
                "vit_gradient": vit_counts["gradient"]["flash_attention_backward"],
                "vit_sgd_steps": vit_counts["sgd_steps"]["flash_attention_backward"],
-               "rl": rl_counts["flash_attention_backward"]}),
+               "rl": rl_counts["flash_attention_backward"],
+               "ring_schedule": ring_counts["flash_attention_backward"],
+               "spmd_mesh1": mesh1_counts["flash_attention_backward"],
+               "spmd_tensor2": tensor2_counts["flash_attention_backward"]}),
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -7,10 +7,12 @@ JAX or ``ray_tpu``. Entry points run on the card (``device="cuda"``) unless
 the caller asks for the CPU.
 
 Hand-written CUDA kernels carry the main paths: flash attention (prefill,
-``forward``, the ViT and, with its backward kernel, training) and paged
-attention (decode over the paged pool and over the dense cache); see
-``ray_tpu_torch.kernels``. The training step is
-``ray_tpu_torch.parallel.spmd.build_lm_train_step``; checkpoints are
+``forward``, the ViT, ring attention's hops and, with its backward kernel,
+training) and paged attention (decode over the paged pool and over the
+dense cache); see ``ray_tpu_torch.kernels``. The training step is
+``ray_tpu_torch.parallel.spmd.build_lm_train_step``, on one device or on a
+mesh of ranks (``ray_tpu_torch.parallel``: process groups, the mesh,
+sharding rules, ring attention, GPipe, expert-parallel MoE); checkpoints are
 ``ray_tpu_torch.train``'s ``save_pytree`` and ``load_pytree``. The RL
 library (PPO, IMPALA, APPO, DQN, SAC, BC, MARWIL, CQL, multi-agent PPO;
 no kernel) is ``ray_tpu_torch.rl``.
@@ -43,7 +45,11 @@ from ray_tpu_torch.models.transformer import (
     loss_fn,
     param_logical_axes,
 )
-from ray_tpu_torch.ops.attention import attention
+from ray_tpu_torch.ops.attention import (
+    attention,
+    make_context_parallel_attention,
+    ring_attention,
+)
 from ray_tpu_torch.ops.layers import (
     apply_rope,
     gelu,
@@ -64,6 +70,8 @@ from ray_tpu_torch.serve.llm import (
     TokenStream,
 )
 from ray_tpu_torch.train import load_pytree, save_pytree
+from ray_tpu_torch.parallel.mesh import MeshConfig, create_mesh
+from ray_tpu_torch.parallel.spmd import build_lm_train_step
 from ray_tpu_torch.weights import params_from_jax
 
 __all__ = [
@@ -79,10 +87,13 @@ __all__ = [
     "InferenceEngine",
     "KVCacheExhausted",
     "LLMServer",
+    "MeshConfig",
     "TokenStream",
     "TransformerConfig",
     "apply_rope",
     "attention",
+    "build_lm_train_step",
+    "create_mesh",
     "flash_attention",
     "flash_attention_backward",
     "forward",
@@ -94,6 +105,7 @@ __all__ = [
     "layer_norm",
     "load_pytree",
     "loss_fn",
+    "make_context_parallel_attention",
     "make_decode_fns",
     "make_paged_fns",
     "mnist",
@@ -102,6 +114,7 @@ __all__ = [
     "param_logical_axes",
     "params_from_jax",
     "resolve_device",
+    "ring_attention",
     "rms_norm",
     "rope_frequencies",
     "sample_token",

@@ -25,6 +25,7 @@ import math
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 from torch.utils.checkpoint import (
     CheckpointPolicy,
     checkpoint,
@@ -32,8 +33,16 @@ from torch.utils.checkpoint import (
 )
 
 from ray_tpu_torch._device import resolve_device
-from ray_tpu_torch.ops.attention import attention
+from ray_tpu_torch.ops.attention import attention, ring_attention
 from ray_tpu_torch.ops.layers import apply_rope, gelu, rms_norm, rope_frequencies, swiglu
+from ray_tpu_torch.parallel.collectives import all_gather, all_reduce_, copy_to, reduce_from
+from ray_tpu_torch.parallel.mesh import LocalMesh
+from ray_tpu_torch.parallel.sharding import (
+    DEFAULT_LM_RULES,
+    batch_sharding,
+    infer_param_sharding,
+    spec_axes,
+)
 
 Params = Dict[str, torch.Tensor]
 
@@ -157,8 +166,8 @@ def init_params(
 
 
 def param_logical_axes(cfg: TransformerConfig) -> Dict[str, Tuple]:
-    """Logical sharding axes per parameter (the reference's, for the
-    multi-GPU slice's sharding rules)."""
+    """Logical sharding axes per parameter (the reference's; the sharding
+    rules of ``ray_tpu_torch.parallel.sharding`` map them to mesh axes)."""
     axes = {
         "embed": ("vocab", "embed"),
         "wq": ("layers", "embed", "heads", "head_dim"),
@@ -205,30 +214,47 @@ def qkv(layer: Params, h: torch.Tensor, cos, sin, positions):
     return apply_rope(q, cos, sin, positions), apply_rope(k, cos, sin, positions), v
 
 
-def block_output(cfg, layer, x, h, att):
+def block_output(cfg, layer, x, h, att, tensor=None):
     """Residual stream after one block, given the attention output ``att``
-    (B,S,H,Hd) and the normed input ``h``: parallel (GPT-J) or sequential."""
-    att_out = torch.einsum("bshk,hkd->bsd", att, layer["wo"])
+    (B,S,H,Hd) and the normed input ``h``: parallel (GPT-J) or sequential.
+    ``tensor`` is a sharded block's tensor group (None: the whole block is
+    here): each branch's output is all-reduced over it, and the sequential
+    block's MLP input enters its region through ``copy_to``."""
+    att_out = reduce_from(torch.einsum("bshk,hkd->bsd", att, layer["wo"]), tensor)
     if cfg.parallel_block:
         # GPT-J: MLP reads the same normed input; both branches add to residual
-        return x + att_out + mlp(cfg, layer, h)
+        return x + att_out + reduce_from(mlp(cfg, layer, h), tensor)
     x = x + att_out
-    return x + mlp(cfg, layer, rms_norm(x, layer["mlp_norm"]))
+    m = copy_to(rms_norm(x, layer["mlp_norm"]), tensor)
+    return x + reduce_from(mlp(cfg, layer, m), tensor)
 
 
-def _block(cfg, x, layer, cos, sin, positions, use_flash=True):
-    """One transformer block. x: (B, S, D)."""
-    h = rms_norm(x, layer["attn_norm"])
+def _block(cfg, x, layer, cos, sin, positions, model: "ShardedModel", use_flash=True):
+    """One transformer block on ``model``'s shards (``ShardedModel``):
+    the layer's gathers, the Megatron regions over its tensor group, and
+    the ring over its context group. x: (B, S, D)."""
+    layer = {k: model.gather(k, v) for k, v in layer.items()}
+    h = copy_to(rms_norm(x, layer["attn_norm"]), model.tensor)
     q, k, v = qkv(layer, h, cos, sin, positions)
-    att = attention(q, k, v, causal=True, use_flash=use_flash)
-    return block_output(cfg, layer, x, h, att)
+    if model.context is not None:
+        att = ring_attention(q, k, v, group=model.context, causal=True, use_flash=use_flash)
+    else:
+        att = attention(q, k, v, causal=True, use_flash=use_flash)
+    return block_output(cfg, layer, x, h, att, model.tensor)
 
 
-def unembed(params: Params, x: torch.Tensor) -> torch.Tensor:
-    """Final norm and projection to the vocabulary, in the model's dtype."""
+def unembed(params: Params, x: torch.Tensor, model: Optional["ShardedModel"] = None,
+            table: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Final norm and projection to the vocabulary, in the model's dtype.
+    With ``model`` (a rank's ``ShardedModel``) the projection is onto this
+    rank's vocabulary columns, and a tied one uses ``table``, the embedding
+    as the forward gathered it."""
     x = rms_norm(x, params["final_norm"])
     w = params.get("unembed")
-    if w is None:
+    if model is not None:
+        x = copy_to(x, model.tensor)
+        w = table.T if w is None else model.gather("unembed", w)
+    elif w is None:
         w = params["embed"].T
     return torch.einsum("bsd,dv->bsv", x, w)
 
@@ -257,6 +283,147 @@ def _remat(cfg: TransformerConfig, fn, *args):
     return checkpoint(fn, *args, use_reentrant=False)
 
 
+# -- the sharded model (one rank's part of a mesh) ----------------------------
+
+# dimensions the Megatron math splits over the tensor axis; every other
+# sharded dimension (the embed dimension under FSDP) is gathered before use
+TENSOR_DIMS = ("heads", "kv_heads", "mlp", "vocab")
+
+
+class ShardedModel:
+    """How one rank runs its part of the model on ``mesh`` under ``rules``
+    (``ray_tpu_torch.parallel.sharding``), with explicit collectives. With
+    ``mesh=None`` nothing is sharded and every group is None: the model on
+    one device, whose collectives are no-ops (``local_model``).
+
+    - **tensor** (Megatron): a rank holds its heads of ``wq/wk/wv/wo``, its
+      columns of the MLP and its rows of the vocabulary (``embed``,
+      ``unembed``). The normed input enters each block's region through
+      ``copy_to`` (its gradient all-reduced); one all-reduce follows
+      attention and one the MLP; the embedding lookup and the
+      cross-entropy are vocab-parallel (all-reduces of the max, of the sum
+      of exponentials and of the gold logit; no (B, S, V) gather).
+    - **fsdp** (and any other axis on a non-tensor dimension): each
+      parameter is gathered one layer at a time where it is used (inside
+      the remat boundary, so the recompute gathers again); the gather's
+      backward reduce-scatters the gradient back to the shards.
+    - **batch** over the rules' batch axes and **sequence** over their
+      sequence axis: the loss is the mean over the global batch; with a
+      context group attention runs the ring (``ring_attention``) and RoPE
+      takes global positions.
+    """
+
+    def __init__(self, cfg: TransformerConfig, mesh, rules, context_axis=None):
+        mesh = LocalMesh() if mesh is None else mesh
+        self.mesh = mesh
+        logical = param_logical_axes(cfg)
+        self.specs = infer_param_sharding(logical, rules, mesh)
+        tensor_axes, self.gathers, self.gathered_axes = set(), {}, {}
+        for name, axes in logical.items():
+            stacked = name not in UNSTACKED
+            gathers, gathered = [], ()
+            for dim, entry in enumerate(self.specs[name]):
+                on = spec_axes(entry)
+                if not on:
+                    continue
+                if axes[dim] in TENSOR_DIMS:
+                    tensor_axes.add(on)
+                elif axes[dim] == "layers":
+                    raise ValueError(f"{name}: the layer dimension cannot be sharded ({entry})")
+                else:
+                    gathers.append((dim - stacked, mesh.group(on)))
+                    gathered += on
+            self.gathers[name], self.gathered_axes[name] = gathers, gathered
+        if len(tensor_axes) > 1:
+            raise ValueError(f"heads, kv_heads, mlp and vocab must shard over one axis set: {tensor_axes}")
+        self.tensor_axes = tensor_axes.pop() if tensor_axes else ()
+        self.tensor = mesh.group(self.tensor_axes) if self.tensor_axes else None
+        n_t = mesh.axis_size(self.tensor_axes)
+        self.vocab_local = cfg.vocab_size // n_t
+        self.vocab_start = mesh.axis_index(self.tensor_axes) * self.vocab_local
+        batch = batch_sharding(mesh, rules)
+        self.batch_axes = spec_axes(batch[0]) if len(batch) > 0 else ()
+        self.seq_axes = spec_axes(batch[1]) if len(batch) > 1 else ()
+        if self.seq_axes and (context_axis is None or self.seq_axes != (context_axis,)):
+            raise ValueError(
+                f"tokens are sequence shards over {self.seq_axes}: pass context_axis="
+                f"{self.seq_axes[0]!r} (attention runs the ring over it)"
+            )
+        self.context = mesh.group(self.seq_axes) if self.seq_axes else None
+        self.seq_index = mesh.axis_index(self.seq_axes)
+        self.loss_axes = tuple(a for a in mesh.axis_names if a in self.batch_axes + self.seq_axes)
+        for name, gathered in self.gathered_axes.items():
+            # the gather's backward sums over these axes: each must hold
+            # other tokens, or a replicated gradient would be counted twice
+            if not set(gathered) <= set(self.loss_axes):
+                raise ValueError(f"{name} is sharded over {gathered}, not all batch or sequence axes")
+        self.loss_group = mesh.group(self.loss_axes) if self.loss_axes else None
+        self.n_replicas = mesh.axis_size(self.loss_axes)
+
+    def gather(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """Parameter ``name`` (one layer's, for a stacked one) with its
+        non-tensor dimensions gathered."""
+        for dim, group in self.gathers[name]:
+            t = all_gather(t, dim, group)
+        return t
+
+    def grad_axes(self, name: str) -> Tuple[str, ...]:
+        """The axes over which ``name``'s gradient is still a partial sum
+        after the backward: the batch and sequence axes it is not gathered
+        over (the gather's reduce-scatter summed those)."""
+        return tuple(a for a in self.loss_axes if a not in self.gathered_axes[name])
+
+    def shard_axes(self, name: str) -> Tuple[str, ...]:
+        """Every axis that splits ``name`` (its norm sums over them)."""
+        on = [a for entry in self.specs[name] for a in spec_axes(entry)]
+        return tuple(a for a in self.mesh.axis_names if a in on)
+
+    def embed(self, table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+        """Vocab-parallel lookup: a rank's rows where the token falls in its
+        slice of the vocabulary, zeros elsewhere, summed over the group."""
+        if self.tensor is None:
+            return table[tokens]
+        local = tokens - self.vocab_start
+        inside = (local >= 0) & (local < self.vocab_local)
+        rows = table[local.clamp(0, self.vocab_local - 1)]
+        return reduce_from(torch.where(inside[..., None], rows, torch.zeros_like(rows)), self.tensor)
+
+    def positions(self, tokens: torch.Tensor) -> torch.Tensor:
+        """Global token positions of this rank's sequence shard."""
+        b, s = tokens.shape
+        start = self.seq_index * s
+        return (start + torch.arange(s, device=tokens.device)).expand(b, s)
+
+
+@functools.lru_cache(maxsize=None)
+def local_model(cfg: TransformerConfig) -> ShardedModel:
+    """The model on one device: no shards, no groups."""
+    return ShardedModel(cfg, None, DEFAULT_LM_RULES)
+
+
+def _model(cfg, mesh, rules, context_axis) -> ShardedModel:
+    if mesh is None:
+        return local_model(cfg)
+    return ShardedModel(cfg, mesh, DEFAULT_LM_RULES if rules is None else rules, context_axis)
+
+
+def _forward(params, tokens, cfg, model: ShardedModel, positions, use_flash):
+    dev = params["embed"].device
+    tokens = torch.as_tensor(tokens, device=dev)
+    table = model.gather("embed", params["embed"])
+    x = model.embed(table, tokens)
+    cos, sin = rope_frequencies(cfg.head_dim, cfg.max_seq_len, cfg.rope_theta, device=dev)
+    if positions is None and model.context is not None:
+        positions = model.positions(tokens)
+
+    def block(x, layer):
+        return _block(cfg, x, layer, cos, sin, positions, model, use_flash)
+
+    for li in range(cfg.n_layers):
+        x = _remat(cfg, block, x, layer_params(params, li))
+    return unembed(params, x, model, table)
+
+
 def forward(
     params: Params,
     tokens: torch.Tensor,
@@ -264,23 +431,52 @@ def forward(
     *,
     positions: Optional[torch.Tensor] = None,
     use_flash: bool = True,
+    context_axis: Optional[str] = None,
+    mesh=None,
+    rules=None,
 ) -> torch.Tensor:
     """tokens (B, S) -> logits (B, S, vocab), on the parameters' device.
     ``positions`` (B, S) feeds the rotary embedding. ``use_flash=False``
     routes attention through the plain einsum version, the reference that
     the flash kernel is checked against on the card. Differentiable; see
-    the module note for ``cfg.remat``."""
-    dev = params["embed"].device
-    tokens = torch.as_tensor(tokens, device=dev)
-    x = params["embed"][tokens]
-    cos, sin = rope_frequencies(cfg.head_dim, cfg.max_seq_len, cfg.rope_theta, device=dev)
+    the module note for ``cfg.remat``.
 
-    def block(x, layer):
-        return _block(cfg, x, layer, cos, sin, positions, use_flash)
+    With ``mesh`` (a ``ray_tpu_torch.parallel.mesh.Mesh``), ``params`` are
+    this rank's shards under ``rules`` (default ``DEFAULT_LM_RULES``) and
+    ``tokens`` its shard of the batch (and of the sequence, over
+    ``context_axis``, whose attention then runs the ring); the result is
+    this rank's logits, (B, S) local and the vocabulary sharded as
+    ``unembed`` is (``ShardedModel``)."""
+    return _forward(params, tokens, cfg, _model(cfg, mesh, rules, context_axis), positions,
+                    use_flash)
 
-    for li in range(cfg.n_layers):
-        x = _remat(cfg, block, x, layer_params(params, li))
-    return unembed(params, x)
+
+def sharded_loss(params, tokens, targets, cfg, model: ShardedModel, *, positions=None,
+                 loss_mask=None, use_flash: bool = True):
+    """``loss_fn`` with the rank's ``ShardedModel`` made once. Over a
+    tensor group the cross-entropy is vocab-parallel (no (B, S, V)
+    gather); the mean is over the global batch."""
+    logits = _forward(params, tokens, cfg, model, positions, use_flash).float()
+    targets = torch.as_tensor(targets, device=logits.device).long()
+    if model.tensor is None:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, targets[..., None]).squeeze(-1)
+    else:
+        peak = all_reduce_(logits.detach().amax(-1), model.tensor, dist.ReduceOp.MAX)
+        sum_exp = reduce_from(torch.exp(logits - peak[..., None]).sum(-1), model.tensor)
+        logz = peak + torch.log(sum_exp)
+        local = targets - model.vocab_start
+        inside = (local >= 0) & (local < model.vocab_local)
+        gold = torch.gather(logits, -1, local.clamp(0, model.vocab_local - 1)[..., None]).squeeze(-1)
+        gold = reduce_from(torch.where(inside, gold, torch.zeros_like(gold)), model.tensor)
+    nll = logz - gold
+    if loss_mask is not None:
+        mask = torch.as_tensor(loss_mask, device=logits.device).to(nll.dtype)
+        count = all_reduce_(mask.sum(), model.loss_group)
+        return reduce_from((nll * mask).sum(), model.loss_group) / torch.clamp(count, min=1.0)
+    if model.loss_group is None:
+        return nll.mean()
+    return reduce_from(nll.sum(), model.loss_group) / (nll.numel() * model.n_replicas)
 
 
 def loss_fn(
@@ -292,16 +488,16 @@ def loss_fn(
     positions: Optional[torch.Tensor] = None,
     loss_mask: Optional[torch.Tensor] = None,
     use_flash: bool = True,
+    context_axis: Optional[str] = None,
+    mesh=None,
+    rules=None,
 ) -> torch.Tensor:
     """Mean next-token cross-entropy in fp32: logsumexp of the fp32 logits
     minus the gold logit, averaged over all tokens or, with ``loss_mask``,
-    over the masked-in ones (at least one)."""
-    logits = forward(params, tokens, cfg, positions=positions, use_flash=use_flash).float()
-    targets = torch.as_tensor(targets, device=logits.device).long()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, targets[..., None]).squeeze(-1)
-    nll = logz - gold
-    if loss_mask is not None:
-        mask = torch.as_tensor(loss_mask, device=logits.device).to(nll.dtype)
-        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
-    return nll.mean()
+    over the masked-in ones (at least one).
+
+    With ``mesh`` (see ``forward``), every rank passes its shards and gets
+    the mean over the global batch; backpropagating it gives this rank's
+    part of each gradient (``ray_tpu_torch.parallel.spmd`` sums them)."""
+    return sharded_loss(params, tokens, targets, cfg, _model(cfg, mesh, rules, context_axis),
+                        positions=positions, loss_mask=loss_mask, use_flash=use_flash)

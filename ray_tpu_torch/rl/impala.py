@@ -4,9 +4,10 @@
 Parity: ``rllib/algorithms/impala/impala.py:1`` (V-trace from Espeholt et
 al. 2018). The reference's learner is one jitted SPMD program over a
 ``data``-axis mesh, or a group of learner processes; the port's learner is
-one clipped Adam step on one device. ``num_learner_devices > 1`` waits for
-the port's mesh and ``num_learner_workers > 1`` for an actor runtime: both
-raise ``NotImplementedError``. The batch keeps the reference's lane mask
+one clipped Adam step on one device. ``num_learner_devices > 1`` (several
+devices driven from one process, where the port's mesh runs one rank per
+process) and ``num_learner_workers > 1`` (an actor runtime) are not
+ported: both raise ``NotImplementedError``. The batch keeps the reference's lane mask
 (padded env lanes weigh nothing in the loss).
 """
 
@@ -149,8 +150,8 @@ class IMPALA(Algorithm):
     def __init__(self, config: IMPALAConfig, device="cuda"):
         if int(config.num_learner_devices) > 1:
             raise NotImplementedError(
-                "num_learner_devices > 1 needs the port's device mesh, which it does not have "
-                "yet; use one learner device")
+                "num_learner_devices > 1 (several devices in one learner process, where the "
+                "port's mesh runs one rank per process) is not ported; use one learner device")
         if int(config.num_learner_workers) > 1:
             raise NotImplementedError(
                 "num_learner_workers > 1 needs learner actors, which the port does not have")
