@@ -40,6 +40,17 @@ card. (The other collectives of the mesh path, and gloo's send and
 receive, which take no CUDA tensors, are held against the JAX package on
 CPU gloo ranks in the tests, and run over NCCL only on a machine with
 four cards: ``tests/test_torch_kernels_gpu.py -k four_cards``.)
+Phase ``runtime_gpu``: the port's own core runtime. Before the driver drops
+its serving model, its ``LLMServer`` serves three prompts and then one of
+them alone; after phase ``rl``, ``ray_tpu_torch.init()`` must detect the
+one GPU, a ``num_gpus=1`` actor builds the same Llama-2-7B replica in its
+own process (``CUDA_VISIBLE_DEVICES=0``) and serves the same requests
+through both kernels, counted there by the wrappers and by torch.profiler;
+the solo prompt's tokens must equal the driver's (or, where they part,
+the step's logits meet ``_logit_rule``); a ``num_gpus=1`` task waits
+while the actor holds the card and runs after the kill; PPO samples from
+two remote CPU runner actors and heals after losing one; two CPU actors
+meet through the runtime's KV and all-reduce over gloo.
 Every phase prints one JSON object; any failure or missed tolerance raises
 (non-zero exit). The last two lines are the per-kernel summary and the
 result line read by automation:
@@ -1282,7 +1293,7 @@ def _rl_two_steps(dataset) -> dict:
     return out
 
 
-def phase_rl(smi) -> None:
+def phase_rl(smi) -> dict:
     """The RL library: every learner update on the card against the CPU,
     PPO learning CartPole at the reference's configuration, and two
     training steps of each other algorithm."""
@@ -1292,10 +1303,11 @@ def phase_rl(smi) -> None:
     updates = _rl_update_checks(dataset, batches)
     log("rl_updates", card=smi, tol=f"|card - cpu| <= {RL_ATOL} + {RL_RTOL} * |cpu|",
         seconds=time.perf_counter() - t0, cases=updates)
-    _rl_ppo_learns(smi)
+    ppo_row = _rl_ppo_learns(smi)
     t0 = time.perf_counter()
     two = _rl_two_steps(dataset)
     log("rl_two_steps", seconds=time.perf_counter() - t0, algorithms=two)
+    return ppo_row
 
 
 def phase_train_check():
@@ -1723,6 +1735,392 @@ def phase_spmd_tensor2(smi, steps: int = 3):
             "flash_attention_backward": sum(s[1] for r in ranks for s in r["launches_per_step"])}
 
 
+# -- phase runtime_gpu: the port's core runtime on the card -----------------
+
+# Phase runtime_gpu's requests: three prompts of 16-1500 tokens served
+# together, then the middle one alone, 32 greedy tokens each, through the
+# driver's own LLMServer (before it drops its model) and through an actor's.
+RUNTIME_PROMPT_LENGTHS = [16, 700, 1500]
+RUNTIME_NEW_TOKENS = 32
+
+
+def _runtime_prompts(cfg):
+    gen = torch.Generator().manual_seed(17)
+    return [torch.randint(1, cfg.vocab_size, (n,), generator=gen).tolist()
+            for n in RUNTIME_PROMPT_LENGTHS]
+
+
+def _serve_workload(server, prompts, solo, max_new) -> dict:
+    """The requests phase runtime_gpu sends an engine, run where ``server``
+    lives (the driver, or the GPU actor's process): the prompts together
+    once to warm up, then again with the kernels' launch counters set to 0
+    just before and read just after, then ``solo`` alone under
+    torch.profiler, whose device kernels are counted by name."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from ray_tpu_torch.kernels.flash_attention import flash_attention
+    from ray_tpu_torch.kernels.paged_attention import paged_attention
+
+    engine = server.engine
+    kernels = (flash_attention, paged_attention)
+    # warm-up: the same requests once, untimed (a fresh process pays for
+    # cuBLAS handles and heuristics on its first calls)
+    for warm in [engine.submit(p, max_new_tokens=max_new) for p in prompts]:
+        warm.tokens()
+    for kern in kernels:
+        kern.launches = 0
+    t0 = time.perf_counter()
+    streams = [engine.submit(p, max_new_tokens=max_new) for p in prompts]
+    outs = [s.tokens() for s in streams]
+    wall = time.perf_counter() - t0
+    counts = {kern.__name__: kern.launches for kern in kernels}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        stream = engine.submit(solo, max_new_tokens=max_new)
+        solo_out = stream.tokens()
+        solo_wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+    device = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    ttft = sorted(s.ttft_s * 1e3 for s in streams)
+    n_tok = sum(len(o) for o in outs)
+    return dict(tokens=outs, batch_wall_s=wall, tokens_per_s=n_tok / wall,
+                ttft_ms=ttft, launches=counts, solo_tokens=solo_out,
+                solo_ttft_ms=stream.ttft_s * 1e3, solo_wall_s=solo_wall,
+                solo_tokens_per_s=len(solo_out) / solo_wall,
+                solo_profiler_kernels={
+                    "flash_fwd_kernel": sum("flash_fwd_kernel" in n for n in device),
+                    "paged_decode_kernel": sum("paged_decode_kernel" in n for n in device),
+                    "all": len(device)})
+
+
+def _params_checksum(params) -> str:
+    """A digest of every parameter: the float64 sum and sum of squares of
+    each leaf in at most 64 slices along its first axis (one per layer of a
+    stacked leaf), a slice at a time, so no full-size copy is made."""
+    import hashlib
+
+    stats = []
+    for name in sorted(params):
+        t = params[name]
+        rows = t.reshape(t.shape[0], -1) if t.dim() >= 2 else t.reshape(1, -1)
+        for part in torch.tensor_split(rows, min(rows.shape[0], 64)):
+            x = part.float()
+            stats += [torch.sum(x, dtype=torch.float64), torch.sum(x * x, dtype=torch.float64)]
+    return hashlib.sha256(torch.stack(stats).cpu().numpy().tobytes()).hexdigest()
+
+
+def phase_runtime_driver_serve(params, cfg, ecfg) -> dict:
+    """Phase runtime_gpu's requests through the driver's own LLMServer, while
+    the driver still holds the serving model."""
+    from ray_tpu_torch.serve.llm.deployment import LLMServer
+
+    prompts = _runtime_prompts(cfg)
+    server = LLMServer(cfg, ecfg, deployment="llama2-7b-driver",
+                       params_loader=lambda _cfg: params, device="cuda")
+    try:
+        out = _serve_workload(server, prompts, prompts[1], RUNTIME_NEW_TOKENS)
+    finally:
+        server.engine.shutdown()
+    out["checksum"] = _params_checksum(params)
+    # the logits of every step of the solo request, through the kernels, for
+    # holding the actor's to the driver's where their tokens part: one causal
+    # forward over the prompt and the driver's tokens gives each step's
+    out["solo_step_logits"] = _step_logits(params, cfg, prompts[1], out["solo_tokens"])
+    return out
+
+
+def _step_logits(params, cfg, prompt, tokens):
+    """Logits (float32, on the host) that chose ``tokens[i]`` after ``prompt``
+    and ``tokens[:i]``, for every i, through the kernels."""
+    from ray_tpu_torch.models.transformer import forward
+
+    x = torch.tensor([prompt + tokens[:-1]], device="cuda")
+    with torch.inference_mode():
+        logits = forward(params, x, cfg)[0, len(prompt) - 1:]
+    return logits.float().cpu()
+
+
+class _LlamaActor:
+    """An LLMServer replica serving Llama-2-7B at full width in a GPU actor's
+    own process: the weights from the seed phase serve's came from."""
+
+    def __init__(self, ecfg_fields: dict):
+        t0 = time.perf_counter()
+        from ray_tpu_torch.models.transformer import LLAMA2_7B
+        from ray_tpu_torch.serve.llm.deployment import LLMServer
+        from ray_tpu_torch.serve.llm.engine import EngineConfig
+
+        self.cfg = LLAMA2_7B
+        if not torch.cuda.is_available():
+            raise RuntimeError("GPU actor: no CUDA device visible")
+        self.server = LLMServer(self.cfg, EngineConfig(**ecfg_fields), deployment="llama2-7b-actor",
+                                weight_seed=0, device="cuda")
+        self.server.check_health()
+        torch.cuda.synchronize()
+        self.build_s = time.perf_counter() - t0
+
+    def info(self) -> dict:
+        import os
+
+        import ray_tpu_torch
+
+        return dict(pid=os.getpid(), cuda_visible_devices=os.environ.get("CUDA_VISIBLE_DEVICES"),
+                    device_count=torch.cuda.device_count(),
+                    accelerator_ids=ray_tpu_torch.get_runtime_context().get_accelerator_ids(),
+                    checksum=_params_checksum(self.server.engine.params),
+                    build_s=self.build_s)
+
+    def serve(self, prompts, solo, max_new) -> dict:
+        return _serve_workload(self.server, prompts, solo, max_new)
+
+    def first_token(self, prompt) -> tuple:
+        stream = self.server.engine.submit(prompt, max_new_tokens=1)
+        return stream.tokens(), stream.ttft_s * 1e3
+
+    def step_logits(self, prompt, tokens):
+        """The logits of each of the actor's steps (the divergence check)."""
+        return _step_logits(self.server.engine.params, self.cfg, prompt, tokens)
+
+    def stop(self) -> None:
+        self.server.engine.shutdown()
+
+
+class _Rank:
+    """A CPU actor that joins a gloo group through the runtime's KV."""
+
+    def __init__(self, rank: int, world: int):
+        self.rank, self.world = rank, world
+
+    def join(self, key: str) -> tuple:
+        import torch.distributed as dist
+
+        from ray_tpu_torch._private.worker import get_runtime
+        from ray_tpu_torch.parallel import distributed as D
+
+        rt = get_runtime()
+        addr = D.rendezvous_via_kv(rt, key, self.rank, self.world, timeout_s=120)
+        D.initialize(addr, self.world, self.rank, device="cpu", timeout_s=120)
+        t = torch.full((1024,), float(self.rank + 1))
+        dist.all_reduce(t)
+        if self.rank == 0:
+            D.release_rendezvous(rt, key)
+        D.shutdown()
+        return addr, float(t.min()), float(t.max())
+
+
+def _ppo_remote(device, runners: int, envs: int, steps: int):
+    from ray_tpu_torch import rl
+
+    return (rl.PPOConfig().environment("CartPole-v1")
+            .env_runners(num_env_runners=runners, num_envs_per_env_runner=envs,
+                         rollout_fragment_length=steps)
+            .debugging(seed=0).build(device=device))
+
+
+def _timed_train(algo, iters: int) -> tuple:
+    out = []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = algo.train()
+        torch.cuda.synchronize()
+        out.append(time.perf_counter() - t0)
+    return result, out
+
+
+def phase_runtime_gpu(smi, ecfg, driver_serve: dict, rl_row: dict) -> dict:
+    """The port's own core runtime on the card: ``init`` detects the GPU, a
+    ``num_gpus=1`` actor serves Llama-2-7B through the kernels in its own
+    process, a GPU task waits for the actor to give the card back, PPO samples
+    from remote CPU runner actors (and heals after losing one), and two CPU
+    actors form a gloo group through the runtime's KV."""
+    import dataclasses
+    import os
+
+    import ray_tpu_torch
+    from ray_tpu_torch._private.accelerators import nvidia_gpu
+    from ray_tpu_torch.models.transformer import LLAMA2_7B
+
+    if os.environ.get(nvidia_gpu.FAKE_GPUS_ENV):
+        raise AssertionError(f"runtime_gpu: {nvidia_gpu.FAKE_GPUS_ENV} is set; the GPU count "
+                             "must come from detection")
+    row: dict = dict(card=smi)
+    # what init waits for: the fork server imports the package (and torch)
+    # in a fresh interpreter before it forks the first worker
+    t0 = time.perf_counter()
+    subprocess.run([sys.executable, "-c", "import ray_tpu_torch._private.worker_process"],
+                   check=True, timeout=300)
+    row["fresh_interpreter_import_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ray_tpu_torch.init()
+    try:
+        row["init_ms"] = (time.perf_counter() - t0) * 1e3
+        res = ray_tpu_torch.cluster_resources()
+        row["cluster_resources"] = {k: v for k, v in res.items() if k in ("CPU", "GPU")}
+        row["detection"] = dict(cuda_visible_devices=os.environ.get("CUDA_VISIBLE_DEVICES"),
+                                nvml=nvidia_gpu._nvml_count(),
+                                detected=nvidia_gpu.detect_gpu_count(),
+                                torch_device_count=torch.cuda.device_count())
+        if res.get("GPU") != 1.0:
+            raise AssertionError(f"runtime_gpu: cluster_resources()['GPU'] is {res.get('GPU')}, "
+                                 f"want 1 ({row['detection']})")
+
+        @ray_tpu_torch.remote
+        def echo(x):
+            return x
+
+        @ray_tpu_torch.remote
+        class Echo:
+            def echo(self, x):
+                return x
+
+        ray_tpu_torch.get(echo.remote(0), timeout=120)
+        a = Echo.remote()
+        ray_tpu_torch.get(a.echo.remote(0), timeout=120)
+        n = 50
+        t0 = time.perf_counter()
+        for i in range(n):
+            ray_tpu_torch.get(echo.remote(i), timeout=60)
+        row["task_round_trip_ms"] = (time.perf_counter() - t0) * 1e3 / n
+        t0 = time.perf_counter()
+        for i in range(n):
+            ray_tpu_torch.get(a.echo.remote(i), timeout=60)
+        row["actor_call_round_trip_ms"] = (time.perf_counter() - t0) * 1e3 / n
+        ray_tpu_torch.kill(a)
+
+        # the GPU actor: LLMServer at full width in its own process
+        ecfg_fields = dataclasses.asdict(ecfg)
+        t0 = time.perf_counter()
+        actor = ray_tpu_torch.remote(num_gpus=1)(_LlamaActor).remote(ecfg_fields)
+        info = ray_tpu_torch.get(actor.info.remote(), timeout=600)
+        row["gpu_actor_start_s"] = time.perf_counter() - t0
+        row["gpu_actor"] = info
+        if info["cuda_visible_devices"] != "0" or info["device_count"] != 1:
+            raise AssertionError(f"runtime_gpu: the actor sees CUDA_VISIBLE_DEVICES="
+                                 f"{info['cuda_visible_devices']!r} and {info['device_count']} devices")
+        if info["pid"] == os.getpid():
+            raise AssertionError("runtime_gpu: the actor runs in the driver's process")
+        if info["checksum"] != driver_serve["checksum"]:
+            raise AssertionError(f"runtime_gpu: the actor's weights differ from phase serve's "
+                                 f"({info['checksum']} vs {driver_serve['checksum']})")
+        prompts = _runtime_prompts(LLAMA2_7B)
+        served = ray_tpu_torch.get(actor.serve.remote(prompts, prompts[1], RUNTIME_NEW_TOKENS),
+                                   timeout=600)
+        # the actor hop: a one-token request timed at the driver against the
+        # TTFT the actor's engine measured for it
+        hops = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            _, ttft_in_actor = ray_tpu_torch.get(actor.first_token.remote(prompts[1]), timeout=120)
+            hops.append(((time.perf_counter() - t0) * 1e3, ttft_in_actor))
+        hop_ms = min(h[0] - h[1] for h in hops)
+        row["actor_hop"] = dict(round_trip_ms=[h[0] for h in hops],
+                                ttft_in_actor_ms=[h[1] for h in hops], hop_ms=hop_ms,
+                                share_of_ttft=hop_ms / min(h[0] for h in hops))
+        n_layers = LLAMA2_7B.n_layers
+        counts = served["launches"]
+        steps = counts["paged_attention"] / n_layers
+        prof = served["solo_profiler_kernels"]
+        prof_steps = prof["paged_decode_kernel"] / n_layers
+        row["serving"] = dict(
+            prompt_lengths=RUNTIME_PROMPT_LENGTHS, new_tokens=RUNTIME_NEW_TOKENS,
+            actor={k: v for k, v in served.items() if k not in ("tokens", "solo_tokens")},
+            driver={k: v for k, v in driver_serve.items()
+                    if k not in ("tokens", "solo_tokens", "solo_step_logits")},
+            actor_decode_steps=steps, actor_solo_profiled_decode_steps=prof_steps)
+        if counts["flash_attention"] != len(prompts) * n_layers or steps != int(steps) \
+                or steps < RUNTIME_NEW_TOKENS - 1:
+            raise AssertionError(f"runtime_gpu: the actor's launch counts {counts} are not "
+                                 f"{n_layers} per prefill and {n_layers} per decode step")
+        if prof["flash_fwd_kernel"] != n_layers or prof_steps != int(prof_steps) \
+                or prof_steps < RUNTIME_NEW_TOKENS - 1:
+            raise AssertionError(f"runtime_gpu: the actor's profiler saw {prof}: not {n_layers} "
+                                 f"flash kernels for the prefill and {n_layers} paged kernels "
+                                 f"per decode step")
+        if any(len(o) != RUNTIME_NEW_TOKENS for o in served["tokens"] + [served["solo_tokens"]]):
+            raise AssertionError("runtime_gpu: the actor's streams ended short")
+        got, want = served["solo_tokens"], driver_serve["solo_tokens"]
+        diverge = next((i for i, (x, y) in enumerate(zip(got, want)) if x != y), None)
+        row["solo"] = dict(equal=diverge is None, first_divergent_token=diverge,
+                           actor_tokens=got, driver_tokens=want)
+        if diverge is not None:
+            # a near-tie flipped: the actor's logits at that step must meet
+            # phase_decode_check's rule against the driver's, which the driver
+            # recorded before it dropped its model (both ran the same prefix)
+            a_logits = ray_tpu_torch.get(actor.step_logits.remote(prompts[1], got), timeout=300)
+            row["solo"]["divergent_step_rule"] = _logit_rule(
+                "runtime_gpu divergent step", a_logits[diverge][None],
+                driver_serve["solo_step_logits"][diverge][None])
+
+        # a GPU task waits while the actor holds the card, and runs after the kill
+        @ray_tpu_torch.remote(num_gpus=1)
+        def visible():
+            return os.environ.get("CUDA_VISIBLE_DEVICES")
+
+        pending = visible.remote()
+        ready, _ = ray_tpu_torch.wait([pending], num_returns=1, timeout=3.0)
+        if ready:
+            raise AssertionError("runtime_gpu: a num_gpus=1 task ran while the actor held the GPU")
+        ray_tpu_torch.get(actor.stop.remote(), timeout=120)
+        ray_tpu_torch.kill(actor)
+        t0 = time.perf_counter()
+        after = ray_tpu_torch.get(pending, timeout=300)
+        row["pending_gpu_task"] = dict(ready_while_held=False, after_kill=after,
+                                       ran_after_kill_s=time.perf_counter() - t0)
+        if after != "0":
+            raise AssertionError(f"runtime_gpu: the GPU task saw CUDA_VISIBLE_DEVICES={after!r}")
+
+        # PPO: the learner on the card, two remote CPU runner actors
+        algo = _ppo_remote("cuda", 2, 4, 32)
+        result, secs = _timed_train(algo, 1)
+        if result["num_env_steps_sampled_lifetime"] != 256:
+            raise AssertionError(f"runtime_gpu: PPO sampled {result['num_env_steps_sampled_lifetime']}")
+        _, more = _timed_train(algo, 3)
+        secs += more
+        ray_tpu_torch.kill(algo.runners.remote[0])
+        result, after_kill = _timed_train(algo, 1)
+        healthy_after_kill = algo.runners.num_healthy()
+        restored = algo.runners.restore()
+        healthy = algo.runners.num_healthy()
+        lifetime = result["num_env_steps_sampled_lifetime"]
+        algo.stop()
+        local = _ppo_remote("cuda", 0, 8, 32)
+        _, local_secs = _timed_train(local, 4)
+        row["ppo_remote_runners"] = dict(
+            config="PPOConfig(), 2 remote runners x 4 envs x 32 steps, seed 0; learner on the card",
+            train_s=secs, env_steps_per_s=256 / (sum(secs[1:]) / len(secs[1:])),
+            after_kill=dict(train_s=after_kill[0], lifetime_env_steps=lifetime,
+                            healthy=healthy_after_kill, restored=restored, healthy_after_restore=healthy),
+            local_runner_same_batch=dict(config="8 envs x 32 steps, num_env_runners=0",
+                                         train_s=local_secs,
+                                         env_steps_per_s=256 / (sum(local_secs[1:]) / 3)),
+            phase_rl_local_env_steps_per_s=rl_row["env_steps_per_s"])
+        if lifetime != 4 * 256 + 128 or healthy_after_kill != 1 or restored != 1 or healthy != 2:
+            raise AssertionError(f"runtime_gpu: PPO's runner group did not heal: "
+                                 f"{row['ppo_remote_runners']['after_kill']}")
+
+        # two CPU actors meet through the KV and all-reduce over gloo
+        rank_cls = ray_tpu_torch.remote(_Rank)
+        t0 = time.perf_counter()
+        members = [rank_cls.remote(r, 2) for r in range(2)]
+        ranks = ray_tpu_torch.get([m.join.remote("runtime-gpu") for m in members], timeout=300)
+        from ray_tpu_torch.parallel import distributed as D
+
+        left = ray_tpu_torch._private.worker.get_runtime().rpc("kv_get", D._NAMESPACE,
+                                                              b"runtime-gpu")
+        row["rendezvous"] = dict(ranks=ranks, seconds=time.perf_counter() - t0,
+                                 key_after_release=left)
+        if ranks[0][0] != ranks[1][0] or any(tuple(r[1:]) != (3.0, 3.0) for r in ranks) \
+                or left is not None:
+            raise AssertionError(f"runtime_gpu: rendezvous/all-reduce failed: {row['rendezvous']}")
+    finally:
+        ray_tpu_torch.shutdown()
+        log("runtime_gpu", **row)
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -1755,6 +2153,7 @@ def main() -> int:
     with torch.inference_mode():
         phase_first_tokens(params, cfg, prompts, outs)
     dense_counts = phase_dense_generate(params, cfg, serve_row)
+    runtime_driver = phase_runtime_driver_serve(params, cfg, ecfg)
     log("serve_total", seconds=time.perf_counter() - t_start,
         peak_gib=torch.cuda.max_memory_allocated() / 2**30)
 
@@ -1771,9 +2170,13 @@ def main() -> int:
 
     for kern in (flash_attention, flash_attention_backward, paged_attention):
         kern.launches = 0
-    phase_rl(smi)
+    rl_row = phase_rl(smi)
     rl_counts = {kern.__name__: kern.launches
                  for kern in (flash_attention, flash_attention_backward, paged_attention)}
+    # the runtime's GPU actor serves the model the driver has dropped
+    gc.collect()
+    torch.cuda.empty_cache()
+    runtime_counts = phase_runtime_gpu(smi, ecfg, runtime_driver, rl_row)
     bwd_rows = phase_kernels_bwd()
     ring_counts, _ = phase_ring_schedule()
     phase_train_check()
@@ -1811,13 +2214,15 @@ def main() -> int:
                "train": train_counts["flash_attention"], "rl": rl_counts["flash_attention"],
                "ring_schedule": ring_counts["flash_attention"],
                "spmd_mesh1": mesh1_counts["flash_attention"],
-               "spmd_tensor2": tensor2_counts["flash_attention"]}),
+               "spmd_tensor2": tensor2_counts["flash_attention"],
+               "runtime_gpu_actor": runtime_counts["flash_attention"]}),
         entry("paged_attention", "ray_tpu_torch/csrc/paged_attention.cu", paged_rows[0],
               counts["paged_attention"],
               {"serve": counts["paged_attention"],
                "dense_generate": dense_counts["paged_attention"],
                "rl": rl_counts["paged_attention"],
-               "spmd_mesh1": mesh1_counts["paged_attention"]}),
+               "spmd_mesh1": mesh1_counts["paged_attention"],
+               "runtime_gpu_actor": runtime_counts["paged_attention"]}),
         entry("flash_attention_bwd", "ray_tpu_torch/csrc/flash_attention_bwd.cu", bwd_rows[0],
               train_counts["flash_attention_backward"],
               {"train": train_counts["flash_attention_backward"],

@@ -16,9 +16,45 @@ sharding rules, ring attention, GPipe, expert-parallel MoE); checkpoints are
 ``ray_tpu_torch.train``'s ``save_pytree`` and ``load_pytree``. The RL
 library (PPO, IMPALA, APPO, DQN, SAC, BC, MARWIL, CQL, multi-agent PPO;
 no kernel) is ``ray_tpu_torch.rl``.
+
+The package carries its own copy of the core runtime (``ray_tpu_torch.
+_private``: tasks, actors, the object store, the KV store and resource
+scheduling, with ``num_gpus`` on the ``GPU`` resource) and exports its API
+as ``ray_tpu``'s: ``init``, ``remote``, ``get``, ``put``, ``wait``, ``kill``,
+``cancel``, ``get_actor``, ... Its worker processes import torch and
+nothing of JAX.
 """
 
+from ray_tpu_torch import exceptions
+from ray_tpu_torch._api import (
+    available_resources,
+    cancel,
+    cluster_resources,
+    get,
+    init,
+    job_scope,
+    method,
+    nodes,
+    profile_dump,
+    put,
+    recent_traces,
+    remote,
+    request_profile,
+    shutdown,
+    timeline,
+    trace,
+    train_timeline,
+    wait,
+)
 from ray_tpu_torch._device import resolve_device
+from ray_tpu_torch._private.ids import ActorID, JobID, NodeID, ObjectID, TaskID, WorkerID
+from ray_tpu_torch._private.worker import (
+    ObjectRef,
+    ObjectRefGenerator,
+    get_runtime,
+    is_initialized,
+)
+from ray_tpu_torch.actor import ActorClass, ActorHandle, get_actor, kill
 from ray_tpu_torch.kernels.flash_attention import (
     FlashAttention,
     flash_attention,
@@ -72,47 +108,74 @@ from ray_tpu_torch.serve.llm import (
 from ray_tpu_torch.train import load_pytree, save_pytree
 from ray_tpu_torch.parallel.mesh import MeshConfig, create_mesh
 from ray_tpu_torch.parallel.spmd import build_lm_train_step
+from ray_tpu_torch.remote_function import RemoteFunction
+from ray_tpu_torch.runtime_context import get_runtime_context
 from ray_tpu_torch.weights import params_from_jax
 
+__version__ = "0.1.0"
+
 __all__ = [
-    "GPTJ_6B",
-    "LLAMA2_7B",
-    "NULL_BLOCK",
-    "TINY",
+    "ActorClass",
+    "ActorHandle",
     "BlockAllocator",
     "BlockTable",
     "DeploymentOverloadedError",
     "EngineConfig",
     "FlashAttention",
+    "GPTJ_6B",
     "InferenceEngine",
     "KVCacheExhausted",
+    "LLAMA2_7B",
     "LLMServer",
     "MeshConfig",
+    "NULL_BLOCK",
+    "ObjectRef",
+    "ObjectRefGenerator",
+    "TINY",
     "TokenStream",
     "TransformerConfig",
+    "__version__",
     "apply_rope",
     "attention",
+    "available_resources",
     "build_lm_train_step",
+    "cancel",
+    "cluster_resources",
     "create_mesh",
+    "exceptions",
     "flash_attention",
     "flash_attention_backward",
     "forward",
     "gelu",
     "generate",
+    "get",
+    "get_actor",
+    "get_runtime_context",
+    "init",
     "init_kv_cache",
     "init_paged_pool",
     "init_params",
+    "is_initialized",
+    "job_scope",
+    "kill",
     "layer_norm",
     "load_pytree",
     "loss_fn",
     "make_context_parallel_attention",
     "make_decode_fns",
     "make_paged_fns",
+    "method",
     "mnist",
     "moe",
+    "nodes",
     "paged_attention",
     "param_logical_axes",
     "params_from_jax",
+    "profile_dump",
+    "put",
+    "recent_traces",
+    "remote",
+    "request_profile",
     "resolve_device",
     "ring_attention",
     "rms_norm",
@@ -120,6 +183,11 @@ __all__ = [
     "sample_token",
     "save_pytree",
     "sequence_key",
+    "shutdown",
     "swiglu",
+    "timeline",
+    "trace",
+    "train_timeline",
     "vit",
+    "wait",
 ]

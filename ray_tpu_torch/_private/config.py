@@ -1,0 +1,305 @@
+"""Typed, env-overridable flag registry.
+
+Design parity: the reference's ``RAY_CONFIG(type, name, default)`` macro system
+(``src/ray/common/ray_config_def.h:18``, 217 flags) — every flag can be
+overridden by an environment variable ``RAY_TPU_TORCH_<NAME>``, and the head node's
+resolved config is propagated to every node at bootstrap (here: pickled into the
+session's ``config.json`` and re-read by workers).
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import tempfile
+from dataclasses import dataclass, field, fields
+from typing import Any
+
+_ENV_PREFIX = "RAY_TPU_TORCH_"
+
+
+def _coerce(raw: str, typ: type) -> Any:
+    if typ is bool:
+        return raw.lower() in ("1", "true", "yes", "on")
+    if typ is int:
+        return int(raw)
+    if typ is float:
+        return float(raw)
+    return raw
+
+
+@dataclass
+class Config:
+    """All runtime flags. Defaults match single-host dev usage."""
+
+    # --- object store ---
+    object_store_memory: int = 2 * 1024**3  # bytes of shm for the store arena
+    max_direct_call_object_size: int = 100 * 1024  # inline small returns (ref: ray_config_def.h)
+    # transit pins are released by the consumer's deserialization ACK (see
+    # ObjectRef.__reduce__ / scheduler._apply_ref_op) — this backstop only
+    # collects pins whose serialized blob was dropped without ever being
+    # deserialized. It is a leak bound, not a correctness window.
+    transit_pin_backstop_s: float = 3600.0
+    # same-host zero-copy reads: nodes colocated on one machine read each
+    # other's store arenas directly through /dev/shm (parity: plasma is
+    # shared memory for everything on the node)
+    same_host_shm_transfer: bool = True
+    object_spilling_threshold: float = 0.8  # fraction of store full before spilling
+    spill_directory: str = ""  # default: <session>/spill
+    # --- scheduler ---
+    scheduler_top_k_fraction: float = 0.2  # hybrid policy top-k (ref: hybrid_scheduling_policy.cc:99)
+    worker_startup_timeout_s: float = 60.0
+    # locality-aware dispatch: tasks whose stored args total at least
+    # locality_min_arg_bytes prefer a runnable node already holding them
+    # (object-directory scoring) over the default hybrid policy — big
+    # inputs stop triggering pulls over the socket plane
+    locality_aware_dispatch: bool = True
+    locality_min_arg_bytes: int = 100 * 1024
+    # --- workers ---
+    num_workers_soft_limit: int = 0  # 0 = num_cpus
+    worker_idle_timeout_s: float = 300.0
+    worker_keep_warm: int = 2  # idle workers kept per node despite the timeout
+    prestart_workers: bool = True
+    # --- fault tolerance ---
+    # shared secret authenticating the session's sockets (direct actor
+    # calls, channels); generated per session if empty
+    auth_key: str = ""
+    task_max_retries_default: int = 3
+    actor_max_restarts_default: int = 0
+    # --- direct actor transport (parity: actor_task_submitter.h:73) ---
+    # callers resolve an actor's worker address once, then send method calls
+    # straight to the target worker's listener — the head sees only actor
+    # lifecycle events, not the call hot path
+    direct_actor_calls: bool = True
+    # --- events / metrics (telemetry plane, _private/telemetry.py) ---
+    event_stats_print_interval_ms: int = 0  # 0 = disabled
+    # per-process telemetry batch flush period (parity: the reference's
+    # task_events_report_interval_ms=1000, task_event_buffer.h); every
+    # process ships task events + profile spans + metric snapshots to the
+    # scheduler at most this often
+    metrics_report_interval_ms: int = 1000
+    # ring-buffer capacity shared by the scheduler's merged event log and
+    # each process's TelemetryBuffer; overflow is counted, never silent
+    task_event_buffer_max: int = 100_000
+    # master switch for the event pipeline (worker lifecycle events,
+    # profile spans, batched metrics, scheduler task-event log); off trades
+    # observability for the last few percent of small-task throughput
+    telemetry_enabled: bool = True
+    # --- request tracing & continuous profiling (see DESIGN_MAP "Request
+    # tracing & profiling") ---
+    # mint a (trace_id, span_id) at every entry point (driver remote()
+    # calls, serve proxy requests, job submissions) and propagate it through
+    # task specs / lease frames / direct-actor frames / serve handles so
+    # every request yields a cross-process span tree (ray_tpu_torch.trace(id)).
+    # Requires telemetry_enabled; bench-tracked overhead ratio <= 1.05
+    tracing_enabled: bool = True
+    # bound on the scheduler's recent-trace index (trace_id -> root digest)
+    trace_index_max: int = 4096
+    # continuous sampling profiler: steady-state stack-sample rate per
+    # process (Hz). 0 = off; `request_profile` boosts on demand regardless
+    profiler_hz: float = 0.0
+    # distinct (task, stack) aggregation slots kept scheduler-side;
+    # overflow is counted in ray_tpu_torch_profiler_dropped_total
+    profiler_max_stacks: int = 20_000
+    # sliding-window latency series (per-job / per-deployment p50/p95/p99
+    # with exemplar trace ids): window length in seconds
+    latency_window_s: float = 60.0
+    # --- memory observability plane (allocation provenance / leak
+    # watchdog / byte attribution; see DESIGN_MAP "Memory observability")
+    # ---
+    # capture creation-callsite provenance for every store-backed put /
+    # task return / stream item, ship it in telemetry batches into the
+    # scheduler's bounded provenance index, and run the leak watchdog.
+    # Requires telemetry_enabled; bench-tracked overhead ratio <= 1.05
+    memory_plane_enabled: bool = True
+    # bound on the scheduler-side provenance index (oid -> callsite/job/
+    # trace); overflow is counted in ray_tpu_torch_object_provenance_dropped_total
+    object_provenance_max: int = 50_000
+    # leak watchdog: scan cadence joining the ownership table against live
+    # workers/jobs, classifying objects (IN_USE / PINNED_BY_DEAD_OWNER /
+    # CAPTURED_IN_ACTOR / LEAK_SUSPECT) and flagging per-callsite monotonic
+    # growth over a sliding window of scans
+    leak_watchdog_interval_s: float = 1.0
+    # consecutive scans a callsite's live bytes must grow monotonically
+    # (with net growth over the minimums below) before it is flagged as a
+    # LEAK_SUSPECT and an OBJECT_LEAK_SUSPECT event is emitted
+    leak_watchdog_window: int = 8
+    leak_watchdog_min_growth_bytes: int = 1024 * 1024
+    leak_watchdog_min_count_growth: int = 8
+    # --- training step plane (per-step/per-rank stage attribution +
+    # goodput downtime ledger; see DESIGN_MAP "Training observability") ---
+    # decompose every train.report boundary into data_wait / host_to_device
+    # / compile / compute / collective_wait / checkpoint_stall / other per
+    # rank, index records per run scheduler-side, and attribute goodput
+    # loss to downtime causes. Requires telemetry_enabled; bench-tracked
+    # overhead ratio <= 1.05 (bench_train_obs.py)
+    train_obs_enabled: bool = True
+    # steps kept per run in the scheduler's StepIndex (older steps are
+    # evicted into run-level stage aggregates, never silently lost)
+    train_step_index_max: int = 512
+    # distinct runs kept in the StepIndex (oldest evicted)
+    train_runs_max: int = 32
+    # steps of jit warmup before a compile event counts as a RECOMPILE
+    # (flagged with the changed batch shape signature)
+    train_recompile_warmup_steps: int = 2
+    # steps whose wall is below this floor coalesce into one merged record
+    # per flush interval (stage sums and counts preserved exactly) instead
+    # of one row each: a sub-ms report loop would otherwise pay record
+    # construction per step AND flood the bounded per-run step window with
+    # sub-ms rows (512 rows = 0.25s of history). Steps with a checkpoint,
+    # a recompile flag, or operator-attributed stalls always get their own
+    # row. 0 disables coalescing.
+    train_obs_min_step_ms: float = 2.0
+    # cadence of the executor's live goodput + downtime-ledger publication
+    # (ray_tpu_torch_train_goodput and the train_run_meta push); previously the
+    # gauge only appeared at fit() teardown
+    train_goodput_publish_interval_s: float = 5.0
+    # --- transfer-plane observability (netplane; see DESIGN_MAP
+    # "Transfer-plane observability") ---
+    # record peer-arena reads and spill restores into the scheduler-side
+    # per-(src, dst, path) link ledger and run the slow-link watchdog.
+    # Requires telemetry_enabled
+    transfer_plane_enabled: bool = True
+    # watchdog: a link whose throughput EWMA sits below this fraction of
+    # the fleet median (socket/relay links with enough samples) gets a
+    # SLOW_LINK cluster event
+    slow_link_fraction: float = 0.3
+    # transfers below this size don't update a link's throughput EWMA
+    # (dial/framing dominates; they would only add noise)
+    slow_link_min_bytes: int = 1024 * 1024
+    # worker-side read records (peer-arena / spill-restore) below this
+    # size skip the telemetry record — the wire plane is about bulk bytes
+    net_min_record_bytes: int = 256 * 1024
+    # bounds: recent-transfer ring and the link ledger (beyond the cap new
+    # links collapse into an <other> row, never unbounded label growth)
+    net_recent_transfers_max: int = 512
+    net_links_max: int = 4096
+    # --- control-plane observability (actor-launch lifecycle tracing,
+    # worker-pool telemetry, decision flight recorder; see DESIGN_MAP
+    # "Control-plane observability") ---
+    # decompose every Actor.remote() into submit -> placement ->
+    # worker_spawn -> runtime_env -> class_load -> __init__ execute stage
+    # records riding EXISTING messages (spawn_worker cmd / worker ready
+    # ack / creation FINISHED event), keep the launch-profile ring, and
+    # record scheduler placement + autoscaler decisions into the bounded
+    # flight recorder. Requires telemetry_enabled; bench-tracked overhead
+    # ratio <= 1.05 (bench_launch_obs.py)
+    launch_obs_enabled: bool = True
+    # watchdog: an actor creation stuck in one lifecycle stage past this
+    # many seconds gets an ACTOR_LAUNCH_STALLED cluster event (stage,
+    # node, runtime_env digest, trace id); 0 disables
+    actor_launch_warn_s: float = 30.0
+    # bound on the decision flight recorder ring (placement + autoscaler
+    # decisions; oldest evicted)
+    decision_log_max: int = 1024
+    # completed actor-creation stage decompositions kept for the
+    # launch-profile aggregate (oldest evicted)
+    launch_recent_max: int = 512
+    # consecutive spawn failures on one node before pending actor
+    # creations targeting it fail fast with the spawn provenance chained
+    spawn_fail_fast_threshold: int = 3
+    # --- failure forensics (cluster event log, watchdogs) ---
+    # bound on the scheduler's structured cluster-event log (WORKER_DIED,
+    # TASK_FAILED, STRAGGLER, ...); overflow drops the oldest
+    cluster_event_log_max: int = 10_000
+    # persist worker stdout/stderr (structured log records) into
+    # <session>/logs/worker-*.out|.err so list_logs/get_log see them
+    persist_worker_logs: bool = True
+    # straggler watchdog: a RUNNING task is flagged (WARN event +
+    # ray_tpu_torch_stragglers_total) once its elapsed time exceeds
+    # factor x p95 of its function's completed runtimes — needs at least
+    # min_samples completions, and never fires under min_runtime_s
+    straggler_detect_factor: float = 10.0
+    straggler_min_samples: int = 5
+    straggler_min_runtime_s: float = 5.0
+    # driver-side hung-get watchdog: a get() blocked past this many seconds
+    # prints a digest of the pending task chain (states, workers) and
+    # records a HUNG_GET event; 0 disables
+    hung_get_warn_s: float = 60.0
+    # --- multi-tenant job plane (scheduler arbitration; see DESIGN_MAP
+    # "Multi-tenant job plane") ---
+    # weighted-fair queueing: tasks a weight-1.0 job may dispatch per
+    # scheduling-pass visit before yielding to the next job (its quantum);
+    # a job's quantum is fair_share_quantum x weight, and jobs are served
+    # in ascending virtual time (dispatches / weight)
+    fair_share_quantum: float = 8.0
+    # admission control: new job submissions are QUEUED (not ADMITTED)
+    # while the cluster backlog (head ready queue + outstanding leases)
+    # exceeds this bound; 0 disables the bound (always admit)
+    job_admission_backlog_max: int = 0
+    # submissions arriving while this many jobs are already waiting in the
+    # admission queue are REJECTED outright
+    job_admission_max_queued: int = 64
+    # priority preemption: when an ADMITTED job's ready task has waited
+    # longer than preemption_wait_s while strictly-lower-priority jobs hold
+    # resources, the scheduler kills one victim worker per scan (lowest
+    # priority first, then highest held usage, never one inside a
+    # checkpoint-commit protect window)
+    preemption_enabled: bool = True
+    preemption_wait_s: float = 3.0
+    # --- alerting & incident-forensics plane (SLO burn-rate evaluation
+    # + cross-plane root-cause digests; see DESIGN_MAP "Alerting &
+    # incidents"). Evaluation rides the scheduler's existing 1 Hz
+    # maintenance pass; bench_incidents.py proves ratio <= 1.05.
+    incident_plane_enabled: bool = True
+    # bound on the incident table (closed incidents evicted oldest-first)
+    incident_max: int = 256
+    # an open incident closes once its condition cleared AND no trigger
+    # merged into it for this long (recovery hysteresis)
+    incident_quiet_close_s: float = 120.0
+    # half-width of the time window digests use to correlate cluster
+    # events / decisions / launches around an incident
+    incident_event_window_s: float = 120.0
+    # WORKER_DIED burst gate: this many deaths on one node inside
+    # incident_burst_window_s collapse into ONE WORKER_KILL_STORM
+    # incident (a single death is routine churn, never an incident)
+    incident_worker_died_burst: int = 3
+    incident_burst_window_s: float = 30.0
+    # declarative SLOs loaded at startup: a JSON list of SLO specs
+    # ({name, kind, target, budget, threshold, fast_window_s,
+    # slow_window_s, subject, severity, params}), or "@/path/to/file.json"
+    slo_config: str = ""
+    # comma-separated alert sinks: "file:<path>" (one JSON line per
+    # alert) and/or "webhook:<url>" (POST from a daemon thread)
+    alert_sinks: str = ""
+    # --- misc ---
+    # under the process's temporary directory (TMPDIR), so two checkouts
+    # with their own TMPDIR never meet
+    session_dir_root: str = field(
+        default_factory=lambda: os.path.join(
+            tempfile.gettempdir(), "ray_tpu_torch_sessions"
+        )
+    )
+    log_to_driver: bool = True
+
+    @classmethod
+    def from_env(cls, **overrides) -> "Config":
+        cfg = cls()
+        types = {"int": int, "float": float, "bool": bool, "str": str}
+        for f in fields(cls):
+            env_name = _ENV_PREFIX + f.name.upper()
+            if env_name in os.environ:
+                typ = types.get(f.type if isinstance(f.type, str) else f.type.__name__, str)
+                setattr(cfg, f.name, _coerce(os.environ[env_name], typ))
+        for k, v in overrides.items():
+            if v is not None:
+                if not hasattr(cfg, k):
+                    raise ValueError(f"unknown config flag: {k}")
+                setattr(cfg, k, v)
+        return cfg
+
+    def dump(self, path: str) -> None:
+        with open(path, "w") as fh:
+            json.dump({f.name: getattr(self, f.name) for f in fields(self)}, fh, indent=2)
+
+    @classmethod
+    def load(cls, path: str) -> "Config":
+        with open(path) as fh:
+            data = json.load(fh)
+        cfg = cls()
+        for k, v in data.items():
+            if hasattr(cfg, k):
+                setattr(cfg, k, v)
+        return cfg
+
+

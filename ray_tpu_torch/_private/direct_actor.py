@@ -1,0 +1,867 @@
+"""Direct worker-to-worker actor-call transport.
+
+Design parity: the reference submits actor tasks straight from the caller to
+the target worker — ``src/ray/core_worker/transport/actor_task_submitter.h:73``
+(caller-side queues, resend on restart) and ordered execution at the receiver
+(``src/ray/core_worker/transport/task_receiver.h:51``) — with the GCS seeing
+only lifecycle events. Here:
+
+* every worker process opens an authenticated listener (``DirectServer``,
+  worker_process.py) — the worker->worker gRPC equivalent;
+* the caller resolves an actor's worker address ONCE via the head
+  (``resolve_actors`` rpc), then streams method calls over a cached
+  connection (per-caller FIFO = TCP order, like the reference's sequence
+  numbers per caller handle);
+* results return on the same connection and are committed to a CALLER-LOCAL
+  memory store: the caller owns its call results (parity: the owner-side
+  in-process store, ``memory_store.h:43`` + ``reference_count.h:61``), so the
+  head sees zero traffic for the actor hot path;
+* when a caller-owned ref ESCAPES the process (pickled into another task,
+  stored, returned), ownership is escalated to the head: the value (if
+  inline) and the accumulated local refcount transfer in one message, after
+  which the existing borrower protocol applies.
+
+Failure model: a broken connection triggers re-resolution. While the actor
+restarts the head answers ("pending",); calls queue caller-side and are
+replayed in submission order once the new incarnation is ALIVE — sent-but-
+unacked calls are replayed only within their ``max_task_retries`` budget
+(at-least-once), otherwise they fail with ``ActorDiedError``, matching
+reference actor fault semantics. ("dead", cause) fails everything queued.
+"""
+
+from __future__ import annotations
+
+import collections
+import logging
+import os
+import pickle
+import threading
+import time
+from multiprocessing import connection as mpc
+from typing import Any, Dict, List, Optional, Tuple
+
+from ray_tpu_torch import exceptions as exc
+from ray_tpu_torch._private.ids import ActorID, ObjectID, TaskID
+from ray_tpu_torch._private.task_spec import TaskSpec
+
+logger = logging.getLogger(__name__)
+
+
+class _CallRec:
+    __slots__ = ("spec", "retries_left", "arg_refs")
+
+    def __init__(self, spec: TaskSpec, retries_left: int, arg_refs):
+        self.spec = spec
+        self.retries_left = retries_left
+        self.arg_refs = arg_refs
+
+
+class _Channel:
+    """Caller-side state for one actor (parity: ClientQueue in
+    actor_task_submitter.h:491 — per-actor pending queue + connection)."""
+
+    __slots__ = (
+        "aid",
+        "mode",  # resolving | direct | relay | dead
+        "addr",
+        "queued",  # deque[_CallRec]: not yet sent
+        "inflight",  # OrderedDict[tid_bin -> _CallRec]: sent, awaiting result
+        "max_task_retries",
+        "death_cause",
+        "pending_release",  # deferred handle-count decrements
+        "next_poll",
+        "backoff",
+        "connect_failures",
+        "created_at",
+    )
+
+    def __init__(self, aid: ActorID):
+        self.aid = aid
+        self.mode = "resolving"
+        self.addr = None
+        self.queued: collections.deque = collections.deque()
+        self.inflight: "collections.OrderedDict[bytes, _CallRec]" = (
+            collections.OrderedDict()
+        )
+        self.max_task_retries = 0
+        self.death_cause: Optional[str] = None
+        self.pending_release = 0
+        self.next_poll = 0.0
+        self.backoff = 0.005
+        self.connect_failures = 0
+        self.created_at = time.monotonic()
+
+
+class _OwnedRef:
+    """Local ownership record for a direct-call return object."""
+
+    __slots__ = ("count", "committed", "escalated", "escalate_on_commit", "dead")
+
+    def __init__(self):
+        self.count = 0
+        self.committed = False
+        self.escalated = False
+        self.escalate_on_commit = False
+        self.dead = False
+
+
+class DirectActorClient:
+    """Per-process submitter + result plane for direct actor calls.
+
+    The hosting runtime provides:
+      rt.rpc(op, *args)                 — head control-plane query
+      rt.config                         — cluster config
+      rt.pin_external(oids)             — +1 in-flight pin at the head
+      rt.unpin_external(oids)           — -1 of the same
+      rt.publish_external(items)        — [(oid, entry|None, src_dir, count)]
+                                          commit + refcount escalation at head
+      rt.legacy_submit(spec)            — head-relayed actor submission
+      rt.handle_count_external(aid, d)  — forward a handle-count delta
+    ``store`` is the MemoryStore results commit into (the driver passes the
+    scheduler's shared store); ``on_commit(oids)`` runs after each commit
+    batch (the driver uses it to wake head-side dep/pull waiters).
+    """
+
+    def __init__(self, rt, store, on_commit=None, shared_store=False):
+        self._rt = rt
+        self.store = store
+        # the driver's "local" store IS the scheduler's shared memory store:
+        # entries there belong to the head after escalation and must not be
+        # evicted by this client's bookkeeping
+        self._shared_store = shared_store
+        self._on_commit = on_commit
+        self._lock = threading.RLock()
+        self._actors: Dict[bytes, _Channel] = {}
+        # addr -> dict(conn=, send_lock=, aids=set, alive=bool)
+        self._conns: Dict[Any, dict] = {}
+        self._task_actor: Dict[bytes, bytes] = {}  # tid_bin -> aid_bin
+        self._owned: Dict[ObjectID, _OwnedRef] = {}
+        self.stored_dirs: Dict[ObjectID, str] = {}
+        # streaming-generator items committed for a task but not (yet)
+        # wrapped in an ObjectRef by the consumer — release_stream() evicts
+        # whatever the consumer abandoned (tid_bin -> [oid])
+        self._gen_tracked: Dict[bytes, List[ObjectID]] = {}
+        self._closed = False
+        # resolver wakeup
+        self._resolve_cv = threading.Condition(self._lock)
+        self._need_resolve: set = set()  # aid_bin
+        # pump wakeup pipe
+        self._wake_r, self._wake_w = os.pipe()
+        self._threads_started = False
+        self._threads_lock = threading.Lock()
+
+    # -- lifecycle ---------------------------------------------------------
+
+    def _ensure_threads(self):
+        # lock-free fast path: the flag is monotonic, so a stale read only
+        # falls through to the locked check
+        if self._threads_started:
+            return
+        # guarded by its own lock, never self._lock: Thread.start() waits
+        # for the child's bootstrap, whose GC finalizers may need
+        # self._lock (see submit)
+        with self._threads_lock:
+            if self._threads_started:
+                return
+            self._threads_started = True
+        threading.Thread(
+            target=self._pump_loop, name="direct-actor-pump", daemon=True
+        ).start()
+        threading.Thread(
+            target=self._resolve_loop, name="direct-actor-resolve", daemon=True
+        ).start()
+
+    def shutdown(self):
+        self._closed = True
+        with self._resolve_cv:
+            self._resolve_cv.notify_all()
+        try:
+            os.write(self._wake_w, b"x")
+        except OSError:
+            pass
+        with self._lock:
+            for st in self._conns.values():
+                try:
+                    st["conn"].close()
+                except OSError:
+                    pass
+
+    # -- ownership ---------------------------------------------------------
+
+    def owns(self, oid: ObjectID) -> bool:
+        with self._lock:
+            rec = self._owned.get(oid)
+            return rec is not None and not rec.escalated
+
+    def add_refs(self, oids) -> List[ObjectID]:
+        """Count locally-owned oids; returns the remainder for the caller's
+        external path."""
+        rest = []
+        with self._lock:
+            for oid in oids:
+                rec = self._owned.get(oid)
+                if rec is None or rec.escalated:
+                    rest.append(oid)
+                else:
+                    rec.count += 1
+        return rest
+
+    def remove_refs(self, oids) -> List[ObjectID]:
+        rest = []
+        evict = []
+        with self._lock:
+            for oid in oids:
+                rec = self._owned.get(oid)
+                if rec is None or rec.escalated:
+                    rest.append(oid)
+                    continue
+                rec.count -= 1
+                if rec.count <= 0:
+                    if rec.committed:
+                        del self._owned[oid]
+                        evict.append(oid)
+                    else:
+                        rec.dead = True  # free on arrival
+        for oid in evict:
+            self.store.evict(oid)
+            self.stored_dirs.pop(oid, None)
+        return rest
+
+    def release_stream(self, task_id: TaskID) -> None:
+        """Drop locally-owned streaming items the consumer never wrapped in
+        an ObjectRef (the generator was abandoned mid-stream). Consumed
+        items hold a positive count (or were already evicted by their ref's
+        finalizer) and escalated ones belong to the head — both skipped."""
+        evict = []
+        with self._lock:
+            for oid in self._gen_tracked.pop(task_id.binary(), ()):
+                rec = self._owned.get(oid)
+                if (
+                    rec is not None
+                    and rec.committed
+                    and rec.count <= 0
+                    and not rec.escalated
+                ):
+                    del self._owned[oid]
+                    evict.append(oid)
+        for oid in evict:
+            # matches remove_refs: a count-0, never-escalated object is
+            # purely ours regardless of which store holds it
+            self.store.evict(oid)
+            self.stored_dirs.pop(oid, None)
+
+    def ensure_published(self, oids) -> None:
+        """Escalate caller-owned oids to head ownership before they escape
+        this process (pickled into a task, stored, passed cross-process).
+        Committed values ship now; pending ones ship on arrival."""
+        items = []
+        with self._lock:
+            for oid in oids:
+                rec = self._owned.get(oid)
+                if rec is None or rec.escalated:
+                    continue
+                if not rec.committed:
+                    rec.escalate_on_commit = True
+                    continue
+                entry = self.store.get_entry(oid)
+                if entry is not None and entry[0] == "stored":
+                    # location already registered via the executor's
+                    # submit_put; only the counts move
+                    entry = None
+                items.append(
+                    (oid, entry, self.stored_dirs.get(oid, ""), rec.count)
+                )
+                self._drop_escalated_locked(oid)
+        if items:
+            self._rt.publish_external(items)
+
+    def _drop_escalated_locked(self, oid: ObjectID) -> None:
+        """Ownership moved to the head: this client's bookkeeping for the
+        oid is done — drop it so escaped results don't accumulate forever.
+        (Subsequent ref ops route external because the oid is unknown.)"""
+        self._owned.pop(oid, None)
+        self.stored_dirs.pop(oid, None)
+        if not self._shared_store:
+            # worker-local store: the published value is reachable via the
+            # head now; keeping a private copy would leak per escaped oid
+            self.store.evict(oid)
+
+    def entry_hint(self, oid: ObjectID):
+        return self.store.get_entry(oid)
+
+    def routes_local(self, oid: ObjectID) -> bool:
+        """True when this oid will (eventually) commit on the local plane —
+        the caller should not register a head pull for it. Covers owned
+        returns and stream items of calls still in flight here."""
+        with self._lock:
+            rec = self._owned.get(oid)
+            if rec is not None:
+                return not rec.escalated
+            try:
+                tid_bin = oid.task_id().binary()
+            except Exception:
+                return False
+            return tid_bin in self._task_actor
+
+    def mark_killed(self, aid: ActorID, cause: str = "killed via ray_tpu_torch.kill"):
+        """A no-restart kill issued from THIS process: fail the local channel
+        immediately so subsequent calls raise deterministically (other
+        processes converge via resolution). Already-sent calls race the
+        process death, matching reference ray.kill semantics."""
+        with self._lock:
+            ch = self._actors.get(aid.binary())
+            if ch is None or ch.mode == "dead":
+                return
+            self._need_resolve.discard(aid.binary())
+            ch.mode = "dead"
+            ch.death_cause = cause
+            # queued calls were never sent to the worker: started-marker
+            # False (safe for serve's transparent failover)
+            err = exc.ActorDiedError(aid, cause, task_started=False)
+            while ch.queued:
+                self._fail_call_locked(ch, ch.queued.popleft(), err)
+            self._flush_releases_locked(ch)
+
+    # -- handle lifecycle --------------------------------------------------
+
+    def handle_release(self, aid: ActorID) -> bool:
+        """Defer a handle-count decrement while calls are still in flight on
+        this channel (so an out-of-scope kill can't shoot down our own
+        pending calls). Returns True when deferred."""
+        with self._lock:
+            ch = self._actors.get(aid.binary())
+            if ch is not None and (ch.inflight or ch.queued):
+                ch.pending_release += 1
+                return True
+        return False
+
+    # -- submission --------------------------------------------------------
+
+    def submit(self, spec: TaskSpec) -> bool:
+        """Try to take this actor call onto the direct plane. Returns False
+        when the call must use the head relay instead (stable per actor)."""
+        if self._closed:
+            return False
+        t_submit = time.time()  # submission anchor for the trace event below
+        aid_bin = spec.actor_id.binary()
+        # thread startup must happen OUTSIDE self._lock: Thread.start()
+        # blocks until the new thread signals started, and if a GC cycle
+        # fires inside that thread's bootstrap, an ObjectRef.__del__ ->
+        # remove_refs there needs self._lock — holding it here while
+        # waiting on the thread is a deadlock (observed under pytest's
+        # full-suite GC pressure)
+        self._ensure_threads()
+        with self._lock:
+            ch = self._actors.get(aid_bin)
+            if ch is None:
+                ch = _Channel(spec.actor_id)
+                self._actors[aid_bin] = ch
+                self._need_resolve.add(aid_bin)
+                self._resolve_cv.notify_all()
+            if ch.mode == "relay":
+                return False
+            # register return ownership BEFORE the ObjectRefs are built
+            for oid in spec.return_ids():
+                self._owned.setdefault(oid, _OwnedRef())
+            # route gets/waits for this task's returns (incl. stream items)
+            # to the local plane from the moment of submission
+            self._task_actor[spec.task_id.binary()] = aid_bin
+            arg_refs = spec.arg_ref_ids()
+            # retries_left None = "budget not yet known" (resolution reveals
+            # max_task_retries); an exhausted budget is 0 and must never be
+            # refilled, or a crash-looping call would replay forever
+            rec = _CallRec(spec, None, arg_refs)
+            if ch.mode == "dead":
+                rec.arg_refs = None  # nothing pinned yet — fail must not unpin
+                self._fail_call_locked(
+                    ch,
+                    rec,
+                    exc.ActorDiedError(
+                        spec.actor_id,
+                        ch.death_cause or "actor died",
+                        task_started=False,
+                    ),
+                )
+                return True
+            if ch.mode == "direct":  # budget known only after resolution
+                rec.retries_left = ch.max_task_retries
+        # escape: args the target worker must resolve through the head
+        if arg_refs:
+            self.ensure_published(arg_refs)
+            self._pin(arg_refs)
+        on_plane = False
+        with self._lock:
+            if ch.mode == "direct":
+                self._send_call_locked(ch, rec)
+                on_plane = True
+            elif ch.mode == "relay":
+                # resolution flipped to relay between our two lock windows
+                self._relay_flush_locked(ch)
+                self._relay_one_locked(rec)
+            elif ch.mode == "dead":
+                self._fail_call_locked(
+                    ch,
+                    rec,
+                    exc.ActorDiedError(
+                        spec.actor_id,
+                        ch.death_cause or "actor died",
+                        task_started=False,
+                    ),
+                )
+            else:
+                ch.queued.append(rec)
+                on_plane = True
+        if on_plane and spec.trace_ctx is not None:
+            # caller-side SUBMITTED anchor: a call that STAYS on the direct
+            # plane never touches the head, so this is the span's only
+            # submission-time record (gap to the worker's RUNNING event =
+            # mailbox/queue wait). Relay fallbacks skip it — the head
+            # records SUBMITTED for them and a duplicate would double-count
+            # the span in the trace index. (A queued call whose channel
+            # later resolves to relay can still record twice; the trace
+            # view keys states by span id, so the dup is cosmetic.)
+            from ray_tpu_torch._private import telemetry as _telemetry
+
+            t = spec.trace_ctx
+            _telemetry.record_task_event(
+                {
+                    "task_id": spec.task_id.hex(),
+                    "name": spec.name,
+                    "type": spec.task_type.name,
+                    "state": "SUBMITTED",
+                    "time": t_submit,
+                    "pid": os.getpid(),
+                    "src": "caller",
+                    "actor_id": spec.actor_id.hex() if spec.actor_id else None,
+                    "trace_id": t[0],
+                    "span_id": t[1],
+                    **({"parent_id": t[2]} if len(t) > 2 and t[2] else {}),
+                }
+            )
+        return True
+
+    def _pin(self, arg_refs):
+        # add_refs counts locally-owned oids and returns the remainder,
+        # which must pin at the head (released on result via _unpin)
+        rest = self.add_refs(arg_refs)
+        if rest:
+            self._rt.pin_external(rest)
+
+    def _unpin(self, arg_refs):
+        rest = self.remove_refs(arg_refs)
+        if rest:
+            self._rt.unpin_external(rest)
+
+    # calls accumulated per connection before one batched send: a burst of
+    # .remote() calls costs one pickle+syscall per BATCH, not per call
+    # (parity: the reference's client-side task submission batching). The
+    # batch flushes when the caller blocks (get/wait), at the size cap, or
+    # within ~2ms via the pump tick — so sync call latency is unchanged and
+    # fire-and-forget latency is bounded.
+    _OUTBOX_CAP = 32
+
+    def _send_call_locked(self, ch: _Channel, rec: _CallRec):
+        st = self._conns.get(ch.addr)
+        if st is None or not st["alive"]:
+            ch.mode = "resolving"
+            ch.queued.append(rec)
+            self._need_resolve.add(ch.aid.binary())
+            self._resolve_cv.notify_all()
+            return
+        if rec.retries_left is None:
+            # every send passes through here; a rec created while the
+            # channel was still resolving gets its budget now (an inflight
+            # None would crash the replay arithmetic in _conn_broken_locked)
+            rec.retries_left = ch.max_task_retries
+        tid_bin = rec.spec.task_id.binary()
+        ch.inflight[tid_bin] = rec
+        outbox = st["outbox"]
+        outbox.append(rec.spec)
+        # burst detection: an isolated call ships inline (sync latency
+        # unchanged); calls arriving back-to-back accumulate and flush at
+        # the cap, at the caller's next get/wait, or via the pump tick
+        now = time.monotonic()
+        burst = now - st["last_submit"] < 0.002
+        st["last_submit"] = now
+        if len(outbox) >= self._OUTBOX_CAP or not burst:
+            self._flush_conn_locked(ch.addr, st)
+        elif len(outbox) == 1:
+            self._wake_pump()
+
+    def _flush_conn_locked(self, addr, st) -> None:
+        if not st["outbox"] or not st["alive"]:
+            return
+        batch, st["outbox"] = st["outbox"], []
+        try:
+            with st["send_lock"]:
+                st["conn"].send(("calls", batch))
+        except (OSError, EOFError, BrokenPipeError):
+            self._conn_broken_locked(addr)
+
+    def flush(self) -> None:
+        """Push out every buffered call; runtimes call this before blocking
+        on results."""
+        if self._closed:
+            return
+        with self._lock:
+            for addr, st in list(self._conns.items()):
+                if st["outbox"]:
+                    self._flush_conn_locked(addr, st)
+
+    # -- relay fallback ----------------------------------------------------
+
+    def _relay_one_locked(self, rec: _CallRec):
+        spec = rec.spec
+        # the head owns these returns now; move any local counts across
+        self._disown_returns_locked(spec)
+        self._task_actor.pop(spec.task_id.binary(), None)
+        # legacy_submit takes its own arg pins (released by the head at
+        # completion); drop ours AFTER so counts never dip through the swap
+        self._rt.legacy_submit(spec)
+        if rec.arg_refs:
+            self._unpin(rec.arg_refs)
+
+    def _disown_returns_locked(self, spec: TaskSpec):
+        items = []
+        for oid in spec.return_ids():
+            rec = self._owned.pop(oid, None)
+            self.stored_dirs.pop(oid, None)
+            if rec is not None and rec.count > 0:
+                items.append((oid, None, "", rec.count))
+        if items:
+            self._rt.publish_external(items)
+
+    def _relay_flush_locked(self, ch: _Channel):
+        while ch.queued:
+            self._relay_one_locked(ch.queued.popleft())
+        self._flush_releases_locked(ch)
+
+    # -- failure -----------------------------------------------------------
+
+    def _fail_call_locked(self, ch: _Channel, rec: _CallRec, err: Exception):
+        blob = pickle.dumps(err)
+        oids = []
+        for oid in rec.spec.return_ids():
+            self._commit_locked(oid, ("error", blob), "")
+            oids.append(oid)
+        if rec.arg_refs:
+            self._unpin_later(rec.arg_refs)
+        self._task_actor.pop(rec.spec.task_id.binary(), None)
+        if self._on_commit is not None and oids:
+            self._on_commit(oids)
+
+    def _unpin_later(self, arg_refs):
+        # deferred outside the lock via a tiny thread-free trick: unpin
+        # touches rt channels that are safe under our RLock in practice,
+        # but keep it simple and call through directly.
+        self._unpin(arg_refs)
+
+    # -- commits -----------------------------------------------------------
+
+    def _commit_locked(self, oid: ObjectID, entry: Tuple, src_dir: str):
+        rec = self._owned.get(oid)
+        if rec is None:
+            rec = _OwnedRef()
+            self._owned[oid] = rec
+        rec.committed = True
+        if entry[0] == "stored" and src_dir:
+            self.stored_dirs[oid] = src_dir
+        escalated_now = False
+        if rec.escalate_on_commit and not rec.escalated:
+            # escalate BEFORE the local put: anything observing the commit
+            # (a dep-waiting task at the head) then runs strictly after the
+            # head has received the transferred refcount
+            escalated_now = True
+            pub_entry = None if entry[0] == "stored" else entry
+            self._rt.publish_external(
+                [(oid, pub_entry, src_dir, rec.count)]
+            )
+        self.store.put(oid, entry)
+        if rec.dead:
+            self._owned.pop(oid, None)
+            self.store.evict(oid)
+            self.stored_dirs.pop(oid, None)
+        elif escalated_now:
+            self._drop_escalated_locked(oid)
+
+    # -- connection plumbing ----------------------------------------------
+
+    def _conn_broken_locked(self, addr):
+        st = self._conns.pop(addr, None)
+        if st is None:
+            return
+        st["alive"] = False
+        try:
+            st["conn"].close()
+        except OSError:
+            pass
+        for aid_bin in st["aids"]:
+            ch = self._actors.get(aid_bin)
+            if ch is None or ch.addr != addr:
+                continue
+            ch.mode = "resolving"
+            ch.backoff = 0.005
+            ch.next_poll = 0.0
+            # replay policy: sent-but-unacked calls may have executed; only
+            # a max_task_retries budget covers re-execution
+            replay = []
+            for tid_bin, rec in ch.inflight.items():
+                if rec.retries_left != 0:
+                    if rec.retries_left > 0:
+                        rec.retries_left -= 1
+                    replay.append(rec)
+                else:
+                    # sent but unacked: it may have begun executing on the
+                    # dead worker (started-marker True — torn work)
+                    self._fail_call_locked(
+                        ch,
+                        rec,
+                        exc.ActorDiedError(
+                            ch.aid, "actor worker died", task_started=True
+                        ),
+                    )
+            ch.inflight.clear()
+            for rec in reversed(replay):
+                ch.queued.appendleft(rec)
+            self._need_resolve.add(aid_bin)
+        self._resolve_cv.notify_all()
+
+    def _wake_pump(self):
+        try:
+            os.write(self._wake_w, b"x")
+        except OSError:
+            pass
+
+    # -- pump thread: drains every direct connection -----------------------
+
+    def _pump_loop(self):
+        while not self._closed:
+            with self._lock:
+                conns = {st["conn"]: addr for addr, st in self._conns.items() if st["alive"]}
+                pending_out = any(
+                    st["outbox"] for st in self._conns.values() if st["alive"]
+                )
+            waitables = list(conns.keys()) + [self._wake_r]
+            try:
+                ready = mpc.wait(waitables, timeout=0.002 if pending_out else 0.2)
+            except OSError:
+                ready = []
+            if pending_out:
+                self.flush()
+            for r in ready:
+                if r is self._wake_r:
+                    try:
+                        os.read(self._wake_r, 4096)
+                    except OSError:
+                        pass
+                    continue
+                addr = conns.get(r)
+                try:
+                    while r.poll(0):
+                        self._handle_reply(r.recv())
+                except (EOFError, OSError, pickle.UnpicklingError):
+                    with self._lock:
+                        self._conn_broken_locked(addr)
+
+    def _handle_reply(self, msg):
+        kind = msg[0]
+        if kind == "results":
+            committed: list = []
+            unpin: list = []
+            with self._lock:
+                for _, tid_bin, results, src_dir in msg[1]:
+                    self._apply_result_locked(
+                        tid_bin, results, src_dir, committed, unpin
+                    )
+            for refs in unpin:
+                self._unpin(refs)
+            if self._on_commit is not None and committed:
+                self._on_commit(committed)
+        elif kind == "result":
+            _, tid_bin, results, src_dir = msg
+            committed = []
+            unpin = []
+            with self._lock:
+                self._apply_result_locked(
+                    tid_bin, results, src_dir, committed, unpin
+                )
+            for refs in unpin:
+                self._unpin(refs)
+            if self._on_commit is not None and committed:
+                self._on_commit(committed)
+        elif kind == "gen_item":
+            _, tid_bin, index, entry, src_dir = msg
+            oid = ObjectID.for_return(TaskID(tid_bin), index)
+            with self._lock:
+                self._commit_locked(oid, entry, src_dir)
+                self._gen_tracked.setdefault(tid_bin, []).append(oid)
+            if self._on_commit is not None:
+                self._on_commit([oid])
+
+    def _apply_result_locked(self, tid_bin, results, src_dir, committed, unpin):
+        aid_bin = self._task_actor.pop(tid_bin, None)
+        ch = self._actors.get(aid_bin) if aid_bin else None
+        rec = ch.inflight.pop(tid_bin, None) if ch else None
+        tid = TaskID(tid_bin)
+        for i, entry in enumerate(results):
+            oid = ObjectID.for_return(tid, i)
+            self._commit_locked(oid, entry, src_dir)
+            committed.append(oid)
+        if ch is not None:
+            self._flush_releases_locked(ch)
+        if rec is not None and rec.arg_refs:
+            unpin.append(rec.arg_refs)
+
+    def _flush_releases_locked(self, ch: _Channel):
+        if ch.pending_release and not ch.inflight and not ch.queued:
+            n, ch.pending_release = ch.pending_release, 0
+            for _ in range(n):
+                self._rt.handle_count_external(ch.aid, -1)
+
+    # -- resolver thread ---------------------------------------------------
+
+    def _resolve_loop(self):
+        while not self._closed:
+            with self._resolve_cv:
+                while not self._closed:
+                    now = time.monotonic()
+                    due = [
+                        b
+                        for b in self._need_resolve
+                        if self._actors[b].next_poll <= now
+                    ]
+                    if due:
+                        break
+                    if self._need_resolve:
+                        nxt = min(
+                            self._actors[b].next_poll for b in self._need_resolve
+                        )
+                        self._resolve_cv.wait(max(0.001, min(nxt - now, 0.25)))
+                    else:
+                        self._resolve_cv.wait(0.5)
+                if self._closed:
+                    return
+                batch = [ActorID(b) for b in due]
+            try:
+                replies = self._rt.rpc("resolve_actors", [a.binary() for a in batch])
+            except Exception:
+                if self._closed:
+                    return
+                with self._lock:
+                    for a in batch:
+                        ch = self._actors.get(a.binary())
+                        if ch is not None:
+                            ch.next_poll = time.monotonic() + 0.5
+                continue
+            for aid, rep in zip(batch, replies):
+                self._apply_resolution(aid, rep)
+
+    def _apply_resolution(self, aid: ActorID, rep):
+        aid_bin = aid.binary()
+        kind = rep[0]
+        if kind == "unknown":
+            # a borrowed handle can race its actor's creation spec to the
+            # head — poll for a grace window, then treat as truly missing
+            with self._lock:
+                ch = self._actors.get(aid_bin)
+                if ch is None:
+                    return
+                if time.monotonic() - ch.created_at < 60.0:
+                    kind = "pending"
+                else:
+                    rep = ("dead", "actor not found")
+                    kind = "dead"
+        if kind == "pending":
+            with self._lock:
+                ch = self._actors.get(aid_bin)
+                if ch is not None:
+                    ch.backoff = min(ch.backoff * 1.6, 0.25)
+                    ch.next_poll = time.monotonic() + ch.backoff
+            return
+        if kind == "dead":
+            with self._lock:
+                ch = self._actors.get(aid_bin)
+                if ch is None:
+                    return
+                self._need_resolve.discard(aid_bin)
+                ch.mode = "dead"
+                ch.death_cause = rep[1]
+                # queued here = never sent: provably unstarted
+                err = exc.ActorDiedError(
+                    aid, rep[1] or "actor died", task_started=False
+                )
+                while ch.queued:
+                    self._fail_call_locked(ch, ch.queued.popleft(), err)
+                self._flush_releases_locked(ch)
+            return
+        if kind == "relay":
+            with self._lock:
+                ch = self._actors.get(aid_bin)
+                if ch is None:
+                    return
+                self._need_resolve.discard(aid_bin)
+                ch.mode = "relay"
+                self._relay_flush_locked(ch)
+            return
+        # ("alive", addr, max_task_retries)
+        _, addr, max_task_retries = rep
+        addr = tuple(addr) if isinstance(addr, list) else addr
+        with self._lock:
+            st = self._conns.get(addr)
+        if st is None or not st["alive"]:
+            try:
+                from ray_tpu_torch._private.object_transfer import _dial
+
+                conn = _dial(addr, self._rt.config.auth_key.encode())
+            except Exception:
+                with self._lock:
+                    ch = self._actors.get(aid_bin)
+                    if ch is None:
+                        return
+                    ch.connect_failures += 1
+                    if ch.connect_failures >= 5:
+                        # unreachable from this process (remote client across
+                        # machines, firewall): fall back to the head relay
+                        self._need_resolve.discard(aid_bin)
+                        ch.mode = "relay"
+                        self._relay_flush_locked(ch)
+                    else:
+                        ch.next_poll = time.monotonic() + 0.05 * ch.connect_failures
+                return
+            with self._lock:
+                st2 = self._conns.get(addr)
+                if st2 is not None and st2["alive"]:
+                    try:
+                        conn.close()
+                    except OSError:
+                        pass
+                    st = st2
+                else:
+                    st = {
+                        "conn": conn,
+                        "send_lock": threading.Lock(),
+                        "aids": set(),
+                        "alive": True,
+                        "outbox": [],
+                        "last_submit": 0.0,
+                    }
+                    self._conns[addr] = st
+            self._wake_pump()
+        with self._lock:
+            ch = self._actors.get(aid_bin)
+            if ch is None:
+                return
+            self._need_resolve.discard(aid_bin)
+            ch.mode = "direct"
+            ch.addr = addr
+            ch.max_task_retries = int(max_task_retries)
+            ch.connect_failures = 0
+            st["aids"].add(aid_bin)
+            for rec in list(ch.queued):
+                if rec.retries_left is None:
+                    rec.retries_left = ch.max_task_retries
+            while ch.queued:
+                self._send_call_locked(ch, ch.queued.popleft())
+                if ch.mode != "direct":
+                    break
+            self._flush_releases_locked(ch)

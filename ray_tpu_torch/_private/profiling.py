@@ -1,0 +1,125 @@
+"""User-annotated profile spans for the task timeline.
+
+Parity: ``ray._private.profiling.profile`` (``profiling.py:84``) →
+``TaskEventBuffer`` (``src/ray/core_worker/task_event_buffer.h:206``) → GCS
+``GcsTaskManager``: code inside tasks/actors wraps hot sections in
+``with profile("name"):`` and the spans appear in ``ray_tpu_torch.timeline()``
+alongside task state events (chrome://tracing "X" complete events).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import os
+import time
+
+
+@contextlib.contextmanager
+def profile(event_name: str, extra_data: dict | None = None):
+    """Record a timed span from inside a task, actor method, or the driver."""
+    start = time.time()
+    try:
+        yield
+    finally:
+        end = time.time()
+        span = {
+            "event": str(event_name),
+            "start": start,
+            "end": end,
+            "duration_ms": (end - start) * 1e3,
+            "pid": os.getpid(),
+            "extra": dict(extra_data or {}),
+        }
+        _emit(span)
+
+
+@contextlib.contextmanager
+def traced_section(event_name: str, extra_data: dict | None = None):
+    """A profile span with its OWN span id, parented under the calling
+    thread's active trace context and ACTIVE for the duration of the block
+    (nested sections / task submissions become its children).
+
+    The serve plane's span primitive: proxy request, handle dispatch, and
+    replica queue/execute sections each get a distinct node in the
+    ``ray_tpu_torch.trace`` tree instead of annotating the task span. Extras can
+    be added after entry via the yielded dict (e.g. TTFT measured
+    mid-stream). Untraced (no active context, tracing disabled): still
+    yields a dict but records nothing.
+    """
+    from ray_tpu_torch.util import tracing
+
+    cur = tracing.get_current_context()
+    if cur is None and not tracing.tracing_enabled():
+        yield {}
+        return
+    if cur is None:
+        ctx = tracing.new_root()
+    else:
+        ctx = tracing.TraceContext(
+            trace_id=cur.trace_id,
+            span_id=tracing._new_id(8),
+            parent_id=cur.span_id,
+        )
+    extras = dict(extra_data or {})
+    start = time.time()
+    with tracing.scope(ctx):
+        try:
+            yield extras
+        finally:
+            end = time.time()
+            span = {
+                "event": str(event_name),
+                "start": start,
+                "end": end,
+                "duration_ms": (end - start) * 1e3,
+                "pid": os.getpid(),
+                "extra": {**extras, **ctx.to_dict()},
+            }
+            _emit(span)
+
+
+def current_section_trace_id() -> "str | None":
+    from ray_tpu_torch.util import tracing
+
+    return tracing.current_trace_id()
+
+
+def _emit(span: dict) -> None:
+    from ray_tpu_torch._private import telemetry
+    from ray_tpu_torch._private import worker as worker_mod
+
+    rt = None
+    try:
+        rt = worker_mod.get_runtime()
+    except Exception:  # not connected: drop silently, profiling is best-effort
+        return
+    if rt is None:
+        return
+    tid = getattr(rt, "current_task_id", None)
+    if callable(tid):  # DriverRuntime exposes it as a method
+        tid = tid()
+    span["task_id"] = tid.hex() if tid is not None else None
+    # attach the active trace context so user spans join the cross-process
+    # tree without each call site threading it through extra_data
+    from ray_tpu_torch.util import tracing
+
+    for k, v in tracing.context_args().items():
+        span["extra"].setdefault(k, v)
+    telemetry.record_span(span)
+
+
+def format_thread_stacks() -> str:
+    """All live threads' stacks in this process (the in-process stand-in for
+    the reference's py-spy reporter-agent dumps,
+    python/ray/dashboard/modules/reporter/reporter_agent.py:314 — py-spy is
+    not shipped in this offline image)."""
+    import sys
+    import threading
+    import traceback
+
+    names = {t.ident: t.name for t in threading.enumerate()}
+    out = []
+    for tid, frame in sorted(sys._current_frames().items()):
+        out.append(f"--- thread {names.get(tid, '?')} ({tid}) ---")
+        out.extend(line.rstrip() for line in traceback.format_stack(frame))
+    return "\n".join(out)

@@ -1,0 +1,134 @@
+"""Fixed-point resource arithmetic and per-instance accounting.
+
+Parity: ``src/ray/common/scheduling/fixed_point.h`` (resource quantities are
+integers in 1/10000 units, so repeated fractional acquire/release cannot
+drift) and ``src/ray/common/scheduling/resource_instance_set.h`` (indexed
+resources — GPU — track availability PER DEVICE: a fractional demand
+packs onto one device, whole demands take whole devices, and the assigned
+indices flow to the worker as ``CUDA_VISIBLE_DEVICES``).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Tuple
+
+UNIT = 10000  # 1.0 == 10000 fixed-point units (fixed_point.h granularity)
+
+# resource names with per-device instance semantics
+INDEXED_RESOURCES = ("GPU",)
+
+
+def fp(value: float) -> int:
+    """Quantize a float quantity to fixed-point units."""
+    return int(round(value * UNIT))
+
+
+def from_fp(units: int) -> float:
+    return units / UNIT
+
+
+def quantize(value: float) -> float:
+    """Snap a float to the fixed-point grid (kills accumulation drift)."""
+    return fp(value) / UNIT
+
+
+class ResourceInstanceSet:
+    """Per-device availability for one indexed resource on one node.
+
+    Allocation rules (parity: ``NodeInstanceSet::TryAllocate``):
+    * demand >= 1 must be a whole number and takes that many FULL devices;
+    * demand < 1 packs onto a single device, preferring the most-loaded
+      device that still fits (best-fit keeps whole devices free for whole
+      demands).
+    """
+
+    def __init__(self, num_instances: int):
+        self.avail: List[int] = [UNIT] * int(num_instances)
+
+    def allocate(self, demand: float) -> Optional[List[Tuple[int, float]]]:
+        """Returns [(instance_index, fraction)] or None when it cannot be
+        satisfied. The returned list is the token for :meth:`free`."""
+        d = fp(demand)
+        if d <= 0:
+            return []
+        if d >= UNIT:
+            if d % UNIT:
+                return None  # >1 demands must be whole (reference semantics)
+            want = d // UNIT
+            idxs = [i for i, a in enumerate(self.avail) if a == UNIT][:want]
+            if len(idxs) < want:
+                return None
+            for i in idxs:
+                self.avail[i] = 0
+            return [(i, 1.0) for i in idxs]
+        # fractional: best-fit among partially-used devices first
+        best = -1
+        for i, a in enumerate(self.avail):
+            if a >= d and a < UNIT and (best < 0 or a < self.avail[best]):
+                best = i
+        if best < 0:
+            for i, a in enumerate(self.avail):
+                if a >= d:
+                    best = i
+                    break
+        if best < 0:
+            return None
+        self.avail[best] -= d
+        return [(best, from_fp(d))]
+
+    def free(self, alloc: List[Tuple[int, float]]) -> None:
+        for i, frac in alloc:
+            if 0 <= i < len(self.avail):
+                self.avail[i] = min(UNIT, self.avail[i] + fp(frac))
+
+    def total_available(self) -> float:
+        return from_fp(sum(self.avail))
+
+
+class InstanceLedger:
+    """All indexed resources of one node (name -> ResourceInstanceSet),
+    built from the node's resource totals."""
+
+    def __init__(self, totals: Dict[str, float]):
+        self.sets: Dict[str, ResourceInstanceSet] = {}
+        for name in INDEXED_RESOURCES:
+            n = int(totals.get(name, 0))
+            if n > 0:
+                self.sets[name] = ResourceInstanceSet(n)
+
+    def allocate(self, demand: Dict[str, float]) -> Optional[Dict[str, List[Tuple[int, float]]]]:
+        """Allocate instances for every indexed resource in the demand;
+        all-or-nothing. Non-indexed resources are ignored (the flat ledger
+        handles them). Returns {} when the demand names no indexed
+        resource."""
+        out: Dict[str, List[Tuple[int, float]]] = {}
+        for name, amount in demand.items():
+            s = self.sets.get(name)
+            if s is None:
+                continue
+            alloc = s.allocate(amount)
+            if alloc is None:
+                for done_name, done_alloc in out.items():
+                    self.sets[done_name].free(done_alloc)
+                return None
+            if alloc:
+                out[name] = alloc
+        return out
+
+    def free(self, allocs: Dict[str, List[Tuple[int, float]]]) -> None:
+        for name, alloc in allocs.items():
+            s = self.sets.get(name)
+            if s is not None:
+                s.free(alloc)
+
+
+def visible_env_for(allocs: Dict[str, List[Tuple[int, float]]]) -> Dict[str, str]:
+    """Worker-process env vars for an instance assignment (parity: the
+    reference's accelerator env isolation, ``_private/accelerators/``)."""
+    env: Dict[str, str] = {}
+    gpu = allocs.get("GPU")
+    if gpu:
+        from ray_tpu_torch._private.accelerators import nvidia_gpu
+
+        env["CUDA_VISIBLE_DEVICES"] = nvidia_gpu.device_ids([i for i, _ in gpu])
+    return env

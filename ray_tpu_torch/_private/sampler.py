@@ -1,0 +1,299 @@
+"""Continuous low-overhead sampling profiler (per process).
+
+Parity role: the reference's py-spy-based reporter agent
+(``python/ray/dashboard/modules/reporter/reporter_agent.py:314``) plus the
+``ray timeline``/flame-graph workflow — py-spy is not shipped in this
+offline image, so sampling is in-process: a daemon thread wakes at the
+configured rate (``profiler_hz``; 0 = off, boosted on demand by the
+``request_profile`` worker command), snapshots every thread's stack via
+``sys._current_frames()``, collapses each into a ``mod.func;mod.func``
+string, and attributes it to the task/trace the sampled thread is executing
+(the per-thread registry updated by ``WorkerRuntime.execute``).
+
+Samples pre-aggregate locally as ``(task_id, trace_id, stack) -> count`` and
+ride the telemetry ring (``TelemetryBuffer.record_samples``) to the
+scheduler, which merges them cluster-wide. Export as collapsed-stack text or
+speedscope JSON via :func:`write_collapsed` / :func:`write_speedscope`
+(surfaced by ``ray_tpu_torch.profile_dump`` and ``ray_tpu_torch trace --flame``).
+
+The reference also records ``jax.monitoring`` compile/execute durations as
+spans; the port has no such hook yet (its torch counterpart, CUDA and
+compile spans, is a later slice), so only stack samples are taken here.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import sys
+import threading
+import time
+from typing import Dict, List, Optional, Tuple
+
+# thread ident -> (task_id_hex, trace_id) for sample attribution; written by
+# the executing threads themselves, read by the sampler thread (GIL-atomic
+# dict ops — no lock on the task hot path)
+_thread_tasks: Dict[int, Tuple[Optional[str], Optional[str]]] = {}
+
+# threads that must never be attributed to tasks (the sampler itself plus
+# infrastructure threads, matched by name prefix)
+_SKIP_THREAD_PREFIXES = (
+    "ray_tpu_torch-sampler",
+    "ray_tpu_torch-telemetry",
+    "reader",
+    "direct-",
+    "serve-direct",
+    "pytest_timeout",
+)
+
+_MAX_DEPTH = 64
+
+
+def note_thread_task(task_id: Optional[str], trace_id: Optional[str]) -> None:
+    """Called by the executing thread at task start/end; (None, None)
+    clears. Keyed by the CALLING thread's ident, so threaded actors
+    attribute each pool thread independently."""
+    ident = threading.get_ident()
+    if task_id is None and trace_id is None:
+        _thread_tasks.pop(ident, None)
+    else:
+        _thread_tasks[ident] = (task_id, trace_id)
+
+
+class StackSampler:
+    """One per process; started lazily by :func:`ensure_running`."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._thread: Optional[threading.Thread] = None
+        self._base_hz = 0.0
+        # on-demand boost: (hz, monotonic deadline)
+        self._boost_hz = 0.0
+        self._boost_until = 0.0
+        self._wake = threading.Event()
+        self._counts: Dict[Tuple, int] = {}
+        self._sampled_total = 0
+        self._last_flush = 0.0
+
+    # -- control -----------------------------------------------------------
+
+    def configure(self, hz: float) -> None:
+        with self._lock:
+            self._base_hz = max(0.0, float(hz))
+        if self._base_hz > 0:
+            self._ensure_thread()
+            self._wake.set()
+
+    def boost(self, hz: float, duration_s: float) -> None:
+        """Temporarily raise the sample rate (request_profile command)."""
+        with self._lock:
+            self._boost_hz = max(0.0, float(hz))
+            self._boost_until = time.monotonic() + max(0.0, float(duration_s))
+        if self._boost_hz > 0:
+            self._ensure_thread()
+            self._wake.set()
+
+    def _rate(self) -> float:
+        with self._lock:
+            if self._boost_hz > 0 and time.monotonic() < self._boost_until:
+                return max(self._base_hz, self._boost_hz)
+            return self._base_hz
+
+    def _ensure_thread(self) -> None:
+        if self._thread is not None and self._thread.is_alive():
+            return
+        t = threading.Thread(
+            target=self._run, name="ray_tpu_torch-sampler", daemon=True
+        )
+        self._thread = t
+        t.start()
+
+    @property
+    def sampled_total(self) -> int:
+        return self._sampled_total
+
+    # -- sampling ----------------------------------------------------------
+
+    def _collapse(self, frame) -> str:
+        parts: List[str] = []
+        depth = 0
+        while frame is not None and depth < _MAX_DEPTH:
+            code = frame.f_code
+            mod = code.co_filename.rsplit("/", 1)[-1]
+            parts.append(f"{mod}:{code.co_name}")
+            frame = frame.f_back
+            depth += 1
+        parts.reverse()  # root-first (collapsed-stack convention)
+        return ";".join(parts)
+
+    def sample_once(self) -> int:
+        """One sweep over all live threads; returns samples taken."""
+        names = {t.ident: t.name for t in threading.enumerate()}
+        me = threading.get_ident()
+        taken = 0
+        try:
+            frames = sys._current_frames()
+        except Exception:
+            return 0
+        for ident, frame in frames.items():
+            if ident == me:
+                continue
+            name = names.get(ident, "")
+            if any(name.startswith(p) for p in _SKIP_THREAD_PREFIXES):
+                continue
+            task_id, trace_id = _thread_tasks.get(ident, (None, None))
+            stack = self._collapse(frame)
+            if not stack:
+                continue
+            key = (task_id, trace_id, stack)
+            with self._lock:
+                self._counts[key] = self._counts.get(key, 0) + 1
+            self._sampled_total += 1
+            taken += 1
+        return taken
+
+    def _flush(self) -> None:
+        with self._lock:
+            if not self._counts:
+                return
+            counts, self._counts = self._counts, {}
+        from ray_tpu_torch._private import telemetry
+
+        telemetry.record_samples(counts)
+
+    def drain(self) -> None:
+        """Flush pending aggregates into the telemetry buffer now (tests /
+        process exit)."""
+        self._flush()
+
+    def _run(self) -> None:
+        while True:
+            hz = self._rate()
+            if hz <= 0:
+                # idle: park until someone re-enables; flush leftovers first
+                try:
+                    self._flush()
+                except Exception:
+                    pass
+                self._wake.wait(2.0)
+                self._wake.clear()
+                continue
+            t0 = time.monotonic()
+            try:
+                self.sample_once()
+            except Exception:
+                pass  # the profiler must never take a process down
+            # ship aggregates roughly once per second regardless of rate
+            if t0 - self._last_flush >= 1.0:
+                self._last_flush = t0
+                try:
+                    self._flush()
+                except Exception:
+                    pass
+            elapsed = time.monotonic() - t0
+            self._wake.wait(max(0.001, 1.0 / hz - elapsed))
+            self._wake.clear()
+
+
+_sampler = StackSampler()
+
+
+def get_sampler() -> StackSampler:
+    return _sampler
+
+
+def ensure_running(config=None) -> None:
+    """Apply the config's steady-state rate (worker/driver startup)."""
+    hz = float(getattr(config, "profiler_hz", 0.0) or 0.0) if config else 0.0
+    if hz > 0:
+        _sampler.configure(hz)
+
+
+def boost(hz: float, duration_s: float) -> None:
+    _sampler.boost(hz, duration_s)
+
+
+# --------------------------------------------------------------------------
+# flame-graph export (collapsed stack / speedscope JSON)
+# --------------------------------------------------------------------------
+
+
+def write_collapsed(rows, path: str) -> int:
+    """``stack count`` lines (Brendan-Gregg collapsed format, feed to
+    flamegraph.pl / speedscope). rows: [(task_id, trace_id, stack, count)].
+    Merges duplicate stacks across tasks. Returns line count."""
+    merged: Dict[str, int] = {}
+    for _task, _trace, stack, n in rows:
+        merged[stack] = merged.get(stack, 0) + int(n)
+    lines = [f"{stack} {n}" for stack, n in sorted(merged.items())]
+    with open(path, "w") as fh:
+        fh.write("\n".join(lines) + ("\n" if lines else ""))
+    return len(lines)
+
+
+def speedscope_document(rows, name: str = "ray_tpu_torch profile") -> dict:
+    """Speedscope file-format dict ('sampled' profile; weights = sample
+    counts). Per-task attribution is preserved by emitting one profile per
+    task id (speedscope renders them as selectable profiles)."""
+    frames: List[dict] = []
+    frame_idx: Dict[str, int] = {}
+
+    def fidx(fname: str) -> int:
+        i = frame_idx.get(fname)
+        if i is None:
+            i = frame_idx[fname] = len(frames)
+            frames.append({"name": fname})
+        return i
+
+    by_task: Dict[str, List[Tuple[str, int]]] = {}
+    for task, _trace, stack, n in rows:
+        by_task.setdefault(task or "<untasked>", []).append((stack, int(n)))
+
+    profiles = []
+    for task, stacks in sorted(by_task.items()):
+        samples, weights = [], []
+        for stack, n in stacks:
+            samples.append([fidx(f) for f in stack.split(";") if f])
+            weights.append(n)
+        total = sum(weights)
+        profiles.append(
+            {
+                "type": "sampled",
+                "name": f"task {task[:16]}" if task != "<untasked>" else task,
+                "unit": "none",
+                "startValue": 0,
+                "endValue": total,
+                "samples": samples,
+                "weights": weights,
+            }
+        )
+    return {
+        "$schema": "https://www.speedscope.app/file-format-schema.json",
+        "name": name,
+        "shared": {"frames": frames},
+        "profiles": profiles,
+        "activeProfileIndex": 0,
+        "exporter": "ray_tpu_torch",
+    }
+
+
+def write_speedscope(rows, path: str, name: str = "ray_tpu_torch profile") -> int:
+    doc = speedscope_document(rows, name=name)
+    with open(path, "w") as fh:
+        json.dump(doc, fh)
+    return len(doc["profiles"])
+
+
+def format_sample_summary(rows, top: int = 20) -> str:
+    """Human-readable top-frames digest for the CLI."""
+    leaf: Dict[str, int] = {}
+    total = 0
+    for _task, _trace, stack, n in rows:
+        total += int(n)
+        frames_ = stack.split(";")
+        if frames_:
+            leaf[frames_[-1]] = leaf.get(frames_[-1], 0) + int(n)
+    out = [f"{total} samples, {len(leaf)} distinct leaf frames"]
+    for fname, n in sorted(leaf.items(), key=lambda kv: -kv[1])[:top]:
+        out.append(f"  {n / max(1, total) * 100:5.1f}%  {fname}")
+    return "\n".join(out)

@@ -1,0 +1,6565 @@
+"""Cluster scheduler + control plane (single-host runtime).
+
+Design parity: this module fuses the roles of the reference's GCS server
+(``src/ray/gcs/gcs_server/gcs_server.h:78`` — actor/node/job/PG/KV tables),
+raylet ClusterTaskManager/LocalTaskManager (``src/ray/raylet/scheduling/
+cluster_task_manager.cc:44``, ``local_task_manager.cc:74``), WorkerPool
+(``src/ray/raylet/worker_pool.h:83``) and the CoreWorker task manager's retry
+logic (``src/ray/core_worker/task_manager.h:208``) into one event loop thread
+in the driver process. Virtual nodes (à la ``python/ray/cluster_utils.py:135``)
+let multi-node scheduling policies be exercised on one machine; the multi-host
+control plane rides the same structures over sockets in a later layer.
+
+Scheduling policy is the reference's hybrid policy
+(``hybrid_scheduling_policy.cc:99``): prefer the local/driver node while it is
+feasible and below a load threshold, else spill to the best-scoring feasible
+node (top-k random to avoid herding).
+"""
+
+from __future__ import annotations
+
+import collections
+import hashlib
+import itertools
+import json
+import logging
+import os
+import pickle
+import queue
+import random
+import threading
+import time
+import traceback
+from dataclasses import dataclass, field
+from typing import Any, Deque, Dict, List, Optional, Set, Tuple
+
+from multiprocessing import connection as mpc
+
+from ray_tpu_torch import exceptions as exc
+from ray_tpu_torch._private.config import Config
+from ray_tpu_torch._private.ids import (
+    ActorID,
+    JobID,
+    NodeID,
+    ObjectID,
+    PlacementGroupID,
+    TaskID,
+    WorkerID,
+)
+from ray_tpu_torch._private import netplane as _netplane
+from ray_tpu_torch._private.object_store import StoreFullError
+from ray_tpu_torch._private.task_spec import Arg, SchedulingStrategy, TaskSpec, TaskType
+from ray_tpu_torch._private.resources import quantize
+
+logger = logging.getLogger(__name__)
+
+
+# --------------------------------------------------------------------------
+# memory store (driver-side inline objects + readiness futures)
+# --------------------------------------------------------------------------
+
+
+class MemoryStore:
+    """In-process store for inline results and readiness signaling.
+
+    Parity: ``CoreWorkerMemoryStore`` (``src/ray/core_worker/store_provider/
+    memory_store/memory_store.h:43``) — holds small/direct returns, wakes
+    get/wait futures.
+    """
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._cv = threading.Condition(self._lock)
+        # oid -> ("inline", bytes) | ("stored",) | ("error", bytes)
+        self._table: Dict[ObjectID, Tuple] = {}
+        # per-oid waiter index: put() hits exactly the waiters of that oid,
+        # so a get() over N objects costs O(N) total instead of O(N) per
+        # commit (rescanning every oid on notify_all was the driver-side
+        # hot spot in the deep-queue microbench)
+        self._waiters: Dict[ObjectID, List[dict]] = {}
+
+    def _put_locked(self, oid: ObjectID, entry: Tuple) -> None:
+        # caller holds the lock
+        self._table[oid] = entry
+        for waiter in self._waiters.pop(oid, ()):
+            waiter["remaining"].discard(oid)
+            waiter["hits"] += 1
+            if (
+                waiter["need"] is None and not waiter["remaining"]
+            ) or (waiter["need"] is not None and waiter["hits"] >= waiter["need"]):
+                waiter["done"] = True
+
+    def put(self, oid: ObjectID, entry: Tuple) -> None:
+        with self._cv:
+            self._put_locked(oid, entry)
+            self._cv.notify_all()
+
+    def get_entry(self, oid: ObjectID) -> Optional[Tuple]:
+        with self._lock:
+            return self._table.get(oid)
+
+    def contains(self, oid: ObjectID) -> bool:
+        with self._lock:
+            return oid in self._table
+
+    def _register_waiter(self, missing: Set[ObjectID], need: Optional[int]) -> dict:
+        # caller holds the lock
+        waiter = {"remaining": missing, "hits": 0, "need": need, "done": False}
+        for o in missing:
+            self._waiters.setdefault(o, []).append(waiter)
+        return waiter
+
+    def _drop_waiter(self, waiter: dict) -> None:
+        # caller holds the lock; prune index entries on timeout so oids that
+        # never commit don't accumulate dead waiters
+        for o in waiter["remaining"]:
+            lst = self._waiters.get(o)
+            if lst is not None:
+                try:
+                    lst.remove(waiter)
+                except ValueError:
+                    pass
+                if not lst:
+                    del self._waiters[o]
+
+    def wait_for(self, oids, timeout: Optional[float]) -> Set[ObjectID]:
+        """Block until all oids present or timeout; returns the ready set."""
+        oids = set(oids)
+        deadline = None if timeout is None else time.monotonic() + timeout
+        with self._cv:
+            missing = {o for o in oids if o not in self._table}
+            if not missing:
+                return oids
+            waiter = self._register_waiter(missing, None)
+            try:
+                while not waiter["done"]:
+                    remaining = None
+                    if deadline is not None:
+                        remaining = deadline - time.monotonic()
+                        if remaining <= 0:
+                            break
+                    self._cv.wait(remaining if remaining is not None else 1.0)
+            finally:
+                self._drop_waiter(waiter)
+            return oids - waiter["remaining"]
+
+    def wait_num(self, oids, num_returns: int, timeout: Optional[float]) -> List[ObjectID]:
+        """Block until >= num_returns of oids are present or timeout."""
+        oids = list(dict.fromkeys(oids))
+        deadline = None if timeout is None else time.monotonic() + timeout
+        with self._cv:
+            missing = {o for o in oids if o not in self._table}
+            have = len(oids) - len(missing)
+            if have >= num_returns or not missing:
+                return [o for o in oids if o in self._table]
+            waiter = self._register_waiter(missing, num_returns - have)
+            try:
+                while not waiter["done"]:
+                    remaining = None
+                    if deadline is not None:
+                        remaining = deadline - time.monotonic()
+                        if remaining <= 0:
+                            break
+                    self._cv.wait(remaining if remaining is not None else 1.0)
+            finally:
+                self._drop_waiter(waiter)
+            return [o for o in oids if o in self._table]
+
+    def evict(self, oid: ObjectID) -> None:
+        with self._lock:
+            self._table.pop(oid, None)
+
+
+# --------------------------------------------------------------------------
+# cluster state
+# --------------------------------------------------------------------------
+
+
+@dataclass
+class NodeState:
+    """Node: resource ledger. Parity: ``NodeResources`` in
+    ``src/ray/common/scheduling/cluster_resource_data.h``. Every node of this
+    runtime is the local head or a virtual node sharing its store."""
+
+    node_id: NodeID
+    total: Dict[str, float]
+    available: Dict[str, float]
+    labels: Dict[str, str] = field(default_factory=dict)
+    alive: bool = True
+    # same-host transfer short-circuit identity: nodes sharing host_id can
+    # read each other's stores through /dev/shm at shm_dir
+    shm_dir: str = ""
+    host_id: str = ""
+
+    def feasible(self, demand: Dict[str, float]) -> bool:
+        return all(self.total.get(k, 0.0) >= v for k, v in demand.items())
+
+    def can_run(self, demand: Dict[str, float]) -> bool:
+        return all(self.available.get(k, 0.0) >= v - 1e-9 for k, v in demand.items())
+
+    def acquire(self, demand: Dict[str, float]) -> None:
+        # fixed-point grid (parity: fixed_point.h): fractional churn cannot
+        # drift a float ledger away from exact zero/total
+        for k, v in demand.items():
+            self.available[k] = quantize(self.available.get(k, 0.0) - v)
+
+    def release(self, demand: Dict[str, float]) -> None:
+        for k, v in demand.items():
+            self.available[k] = quantize(
+                min(self.available.get(k, 0.0) + v, self.total.get(k, 0.0))
+            )
+
+    def instances(self):
+        """Per-device ledger for indexed resources (TPU/GPU); lazy, parity:
+        ``resource_instance_set.h``."""
+        led = self.__dict__.get("_instance_ledger")
+        if led is None:
+            from ray_tpu_torch._private.resources import InstanceLedger
+
+            led = self.__dict__["_instance_ledger"] = InstanceLedger(self.total)
+        return led
+
+    def utilization(self) -> float:
+        if not self.total:
+            return 0.0
+        fracs = [
+            1.0 - self.available.get(k, 0.0) / t for k, t in self.total.items() if t > 0
+        ]
+        return max(fracs) if fracs else 0.0
+
+
+@dataclass
+class WorkerState:
+    worker_id: WorkerID
+    conn: Any  # mp Connection
+    proc: Any  # mp Process
+    node_id: NodeID
+    state: str = "starting"  # starting|idle|busy|blocked|dead
+    idle_since: float = 0.0
+    dead_since: float = 0.0
+    current_task: Optional[TaskID] = None
+    acquired: Dict[str, float] = field(default_factory=dict)
+    acquired_node: Optional[NodeID] = None
+    # indexed-resource device assignment for the current task (TPU/GPU
+    # instance indices; freed with the resources). accel_node is the node
+    # whose ledger they came from — tracked separately because PG workers
+    # keep acquired_node=None (their flat release goes to the bundle)
+    accel_alloc: Dict[str, list] = field(default_factory=dict)
+    accel_node: Optional[NodeID] = None
+    actor_id: Optional[ActorID] = None
+    pg_reservation: Optional[Tuple[PlacementGroupID, int]] = None
+    # address of the worker's direct actor-call listener (rides the ready
+    # message); resolve_actors hands it to callers so the hot path skips
+    # the head (parity: the worker's gRPC endpoint in the actor table)
+    direct_addr: Any = None
+    # preemption shield: >0 while the worker is inside a protected window
+    # (mid-commit checkpoint save) — victim selection skips it
+    protect_count: int = 0
+    # actor lifetime resources charged against the owning job's quota
+    # (released on worker death; tasks charge via TaskRecord.charged)
+    job_charged: Optional[Dict[str, float]] = None
+
+
+@dataclass
+class ActorState:
+    actor_id: ActorID
+    # None only for a pre-registered placeholder: the name was claimed via
+    # GCS RPC but the ACTOR_CREATION spec has not reached the scheduler yet
+    # (method calls racing through that window queue in pending_calls).
+    creation_spec: Optional[TaskSpec]
+    worker_id: Optional[WorkerID] = None
+    state: str = "PENDING"  # PENDING|ALIVE|RESTARTING|DEAD
+    restarts_left: int = 0
+    name: Optional[str] = None
+    namespace: str = "default"
+    # method calls queued while (re)starting:
+    pending_calls: Deque[TaskSpec] = field(default_factory=collections.deque)
+    death_cause: Optional[str] = None
+    num_handles: int = 1
+    detached: bool = False
+    max_task_retries: int = 0
+    # method calls submitted and not yet finished/failed; an out-of-scope
+    # actor is reaped only when this drains (reference semantics: the GCS
+    # terminates an out-of-scope actor after its submitted tasks finish)
+    outstanding: int = 0
+    pending_kill: bool = False
+    # set when the actor's worker was killed by priority preemption: the
+    # next death spares the restart budget (preemption is the cluster's
+    # fault, not the actor's)
+    preempted: bool = False
+    # ---- launch lifecycle (control-plane observability) ----
+    # coarse creation stage for list_actors / the launch watchdog:
+    # submitted -> placing -> spawning -> executing -> ready (-> dead);
+    # stage_ts stamps each transition (wall clock), lifecycle_ms holds the
+    # completed decomposition once the creation settles
+    launch_stage: str = "submitted"
+    stage_ts: Dict[str, float] = field(default_factory=dict)
+    lifecycle_ms: Dict[str, float] = field(default_factory=dict)
+    # wall timestamp of the first settled ACTOR_TASK (first_method ready)
+    first_method_ts: Optional[float] = None
+    # creation trace id (from the spec's trace ctx) for event provenance
+    launch_trace: Optional[str] = None
+
+
+@dataclass
+class TaskRecord:
+    spec: TaskSpec
+    state: str = "PENDING"  # PENDING|WAITING_DEPS|SCHEDULED|RUNNING|FINISHED|FAILED
+    worker_id: Optional[WorkerID] = None
+    retries_left: int = 0
+    unresolved_deps: Set[ObjectID] = field(default_factory=set)
+    submit_time: float = field(default_factory=time.monotonic)
+    start_time: Optional[float] = None
+    end_time: Optional[float] = None
+    # failure forensics: how many times this task was handed to a worker,
+    # and — when it errored — what failed, where (filled by the scheduler;
+    # surfaced in list_tasks rows and linked from TASK_FAILED events)
+    attempt: int = 0
+    error_type: Optional[str] = None
+    error_pid: Optional[int] = None
+    error_node: Optional[str] = None
+    # multi-tenant plane: when this attempt entered the ready queue (the
+    # preemption starvation clock — NOT reset by a failed-placement
+    # front re-queue), resources currently charged against the owning
+    # job's quota (None when not dispatched), and whether the running
+    # attempt was preempted (its requeue then spares the retry budget)
+    ready_since: float = 0.0
+    charged: Optional[Dict[str, float]] = None
+    preempted: bool = False
+
+
+@dataclass
+class JobState:
+    """One tenant's arbitration record (parity role: GcsJobManager's job
+    table, grown into the arbitration layer the reference's job-submission
+    + autoscaler planes assume exists). Owned by the scheduler loop; the
+    memory monitor reads it off-loop (benign: counters and small dicts).
+
+    ``vtime`` is the job's normalized service (dispatches / weight): the
+    DWRR pass serves admitted jobs in ascending vtime, so under scarce
+    capacity every freed slot goes to the least-served job per weight.
+    ``quota`` caps live usage per resource (plus the pseudo-resource
+    ``object_store_bytes``); enforcement happens at dispatch, so an
+    over-quota job degrades to queueing — never the cluster."""
+
+    job_bin: bytes
+    seq: int = 0
+    name: str = ""
+    priority: int = 0
+    weight: float = 1.0
+    quota: Dict[str, float] = field(default_factory=dict)
+    admission: str = "ADMITTED"  # ADMITTED | QUEUED | REJECTED
+    # registered via submit_job (vs minted lazily for an anonymous
+    # driver): registered records persist for the ops surfaces; lazy ones
+    # are GC'd once idle so churning client sessions can't grow _jobs and
+    # the per-job metric label space without bound
+    registered: bool = False
+    submitted_at: float = field(default_factory=time.time)
+    last_active: float = field(default_factory=time.monotonic)
+    # ---- weighted-fair queueing ----
+    vtime: float = 0.0
+    dispatched: int = 0
+    # ---- live usage (quota enforcement + list_jobs/top) ----
+    usage: Dict[str, float] = field(default_factory=dict)
+    running: int = 0
+    object_bytes: int = 0
+    # ---- robustness counters ----
+    preemptions: int = 0
+    oom_kills: int = 0
+    meta: Dict[str, Any] = field(default_factory=dict)
+
+
+def _job_hex_of(task_hex=None, actor_hex=None) -> Optional[str]:
+    """Job id embedded in a task/actor id hex (ids.py nesting: the trailing
+    4 bytes of an ActorID are its JobID; a TaskID ends in its ActorID)."""
+    if task_hex and len(task_hex) == 48:
+        return task_hex[40:]
+    if actor_hex and len(actor_hex) == 32:
+        return actor_hex[24:]
+    return None
+
+
+@dataclass
+class _ReadyShard:
+    """One ready-queue shard: FIFO of queued tasks sharing a scheduling
+    class. For DEFAULT/SPREAD work the class is (strategy, task type, job,
+    resource shape) and ``demand`` holds the common shape — one placement
+    probe per tick answers for every entry, so an infeasible shape costs
+    zero scans regardless of depth. ``demand`` is None only for a job's
+    OTHER shard (per-task placement state: node affinity, PG bundles).
+    Every shard belongs to exactly one job (``job``): shards are the
+    per-job sub-queues the DWRR dispatch pass arbitrates between."""
+
+    key: Tuple
+    kind: str
+    task_type: TaskType
+    demand: Optional[Dict[str, float]]
+    job: bytes = b""
+    queue: Deque[TaskID] = field(default_factory=collections.deque)
+
+
+@dataclass
+class PlacementGroupState:
+    pg_id: PlacementGroupID
+    bundles: List[Dict[str, float]]
+    strategy: str
+    # per-bundle: node placed on + remaining reservation
+    bundle_nodes: List[Optional[NodeID]] = field(default_factory=list)
+    bundle_available: List[Dict[str, float]] = field(default_factory=list)
+    state: str = "PENDING"  # PENDING|CREATED|REMOVED
+    name: str = ""
+
+
+# --------------------------------------------------------------------------
+# GCS tables (KV, named actors, jobs) — thread-safe, shared with driver
+# --------------------------------------------------------------------------
+
+
+class GcsTables:
+    """Parity: GcsKvManager / GcsActorManager name registry / GcsJobManager
+    (``src/ray/gcs/gcs_server/gcs_kv_manager.h``, ``gcs_actor_manager.h:278``,
+    ``gcs_job_manager.h:41``)."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.kv: Dict[Tuple[str, bytes], bytes] = {}
+        self.named_actors: Dict[Tuple[str, str], ActorID] = {}
+
+    def kv_put(self, ns: str, key: bytes, value: bytes, overwrite: bool = True) -> bool:
+        with self._lock:
+            if not overwrite and (ns, key) in self.kv:
+                return False
+            self.kv[(ns, key)] = value
+            return True
+
+    def kv_get(self, ns: str, key: bytes) -> Optional[bytes]:
+        with self._lock:
+            return self.kv.get((ns, key))
+
+    def kv_del(self, ns: str, key: bytes) -> bool:
+        with self._lock:
+            return self.kv.pop((ns, key), None) is not None
+
+    def kv_pop(self, ns: str, key: bytes) -> Optional[bytes]:
+        """Atomic get+delete: exactly one caller observes a given value (used
+        by the workflow event mailbox, where get-then-del would let a post
+        racing between the two calls be deleted unseen)."""
+        with self._lock:
+            return self.kv.pop((ns, key), None)
+
+    def kv_keys(self, ns: str, prefix: bytes) -> List[bytes]:
+        with self._lock:
+            return [k for (n, k) in self.kv if n == ns and k.startswith(prefix)]
+
+    def claim_actor_name(self, ns: str, name: str, actor_id: ActorID) -> bool:
+        """Atomically claim a name; False if already taken."""
+        with self._lock:
+            if (ns, name) in self.named_actors:
+                return False
+            self.named_actors[(ns, name)] = actor_id
+            return True
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            # runtime_env package blobs (up to 100MB each) are excluded: the
+            # snapshot runs on the scheduler loop every few seconds, and
+            # drivers re-upload packages on demand after a restart
+            kv = {
+                k: v for k, v in self.kv.items() if k[0] != "runtime_env_packages"
+            }
+            return {"kv": kv, "named_actors": dict(self.named_actors)}
+
+    def load(self, snap: dict) -> None:
+        with self._lock:
+            self.kv.update(snap.get("kv", {}))
+            self.named_actors.update(snap.get("named_actors", {}))
+
+
+# --------------------------------------------------------------------------
+# the scheduler event loop
+# --------------------------------------------------------------------------
+
+
+class Scheduler:
+    """Event-loop thread owning all cluster state; see module docstring."""
+
+    def __init__(self, node, config: Config):
+        self._node = node  # ray_tpu_torch._private.node.Node
+        self.config = config
+        self.memory_store = MemoryStore()
+        self.gcs = GcsTables()
+
+        self._cmd_queue: queue.SimpleQueue = queue.SimpleQueue()
+        self._wakeup_r, self._wakeup_w = os.pipe()
+        self._wakeup_pending = False
+
+        self.nodes: Dict[NodeID, NodeState] = {}
+        self.workers: Dict[WorkerID, WorkerState] = {}
+        self.actors: Dict[ActorID, ActorState] = {}
+        self.tasks: Dict[TaskID, TaskRecord] = {}
+        self.placement_groups: Dict[PlacementGroupID, PlacementGroupState] = {}
+        # ---- sharded ready queue (dispatch core; see DESIGN_MAP
+        # "Scheduler dispatch core") ----
+        # shard key -> _ReadyShard; per-tick cost is O(shards x nodes +
+        # dispatched), flat in queue depth (the old flat deque paid a
+        # deferral pass per tick per queued task)
+        self._ready_shards: Dict[Tuple, _ReadyShard] = {}
+        self._ready_count = 0  # total queued entries across shards
+        # ---- multi-tenant job plane (see DESIGN_MAP "Multi-tenant job
+        # plane"): per-job arbitration records, the admission queue
+        # (priority-then-FIFO), and the preemption scan clock ----
+        self._jobs: Dict[bytes, JobState] = {}
+        self._job_seq = 0
+        # job ints minted for submissions; 1 is the default driver job
+        self._job_id_counter = 1
+        self._admission_queue: List[bytes] = []
+        self._last_admission_check = 0.0
+        self._last_preempt_scan = 0.0
+        self._last_job_gc = 0.0
+        self._preempt_count = 0
+        # victims SIGTERM'd but not yet dead (worker_id -> kill time):
+        # gates the scan so one starvation costs one victim, not one per
+        # scan period while the first drains
+        self._preempt_inflight: Dict[WorkerID, float] = {}
+        # wall-clock timestamp shared by every event recorded within one
+        # dispatch pass / completion batch (amortizes time.time() per frame)
+        self._pass_now: Optional[float] = None
+        self._dep_waiters: Dict[ObjectID, Set[TaskID]] = collections.defaultdict(set)
+        # worker pulls waiting on pending objects: oid -> [(worker_id, req_id)]
+        self._pull_waiters: Dict[ObjectID, List[Tuple[WorkerID, int]]] = collections.defaultdict(list)
+        self._conn_to_worker: Dict[Any, WorkerID] = {}
+        self._idle_by_node: Dict[NodeID, Deque[WorkerID]] = collections.defaultdict(collections.deque)
+        self._starting_count: Dict[NodeID, int] = collections.defaultdict(int)
+        # object ref counts (owner-side): oid -> count; deletion when 0
+        self._ref_counts: Dict[ObjectID, int] = collections.defaultdict(int)
+        # token -> oid for unreleased transit pins (acknowledged handoff)
+        self._transit_tokens: Dict[bytes, ObjectID] = {}
+        # releases that arrived before their pin (scheduler-bypassing paths)
+        self._early_released: set = set()
+        self._early_release_expiry: collections.deque = collections.deque()
+        # per-worker borrow attribution: released on worker death
+        self._holder_refs: Dict[Any, Dict[ObjectID, int]] = {}
+        # FIFO of (expiry, oid) transit pins; deadlines are monotone because
+        # the TTL is constant, so expiry only ever pops from the left
+        self._transit_pins: collections.deque = collections.deque()
+        self._task_events: Deque[dict] = collections.deque(maxlen=config.task_event_buffer_max)
+        # ---- request-tracing plane ----
+        # bounded recent-trace index: trace_id -> {first_time, last_time,
+        # root (first-seen span name), spans}; feeds `ray_tpu_torch trace --list`
+        # and the latency exemplars
+        self._trace_index: "collections.OrderedDict[str, dict]" = (
+            collections.OrderedDict()
+        )
+        # continuous-profiler aggregation: (task_id, trace_id, stack) ->
+        # sample count, bounded by profiler_max_stacks (overflow counted)
+        self._profile_samples: Dict[Tuple, int] = {}
+        self._profile_samples_dropped = 0
+        # active request_profile boost window: (hz, monotonic deadline)
+        self._profile_boost: Optional[Tuple[float, float]] = None
+        # per-job sliding-window end-to-end task latency (p50/p95/p99 with
+        # exemplar trace ids); job hex -> LatencyWindow
+        from ray_tpu_torch._private.telemetry import LatencyWindow as _LatencyWindow
+
+        self._job_latency: Dict[str, _LatencyWindow] = {}
+        # ---- training step plane (per-run step records + downtime
+        # ledger; see DESIGN_MAP "Training observability") ----
+        from ray_tpu_torch._private.stepplane import StepIndex as _StepIndex
+
+        self._train_index = _StepIndex(config)
+        # ---- failure-forensics plane ----
+        # structured cluster events (WORKER_DIED, NODE_DEAD, TASK_RETRY,
+        # TASK_FAILED, LEASE_FAILED, OBJECT_LOST, OOM, STRAGGLER, ...);
+        # deque append is atomic, so record_cluster_event is callable from
+        # any thread (memory monitor, driver watchdogs)
+        self._cluster_events: Deque[dict] = collections.deque(
+            maxlen=getattr(config, "cluster_event_log_max", 10_000)
+        )
+        self._cluster_event_seq = 0
+        self._cluster_event_counts: Dict[str, int] = {}
+        # guards seq/counts: events arrive from the loop AND from other
+        # threads (memory monitor, driver watchdog rpcs)
+        self._cluster_event_lock = threading.Lock()
+        # per-function completed runtimes (bounded) feeding the straggler
+        # watchdog's p95; dedup gate keyed (task_id, attempt) so a retry
+        # can be re-flagged but one attempt fires at most once
+        from ray_tpu_torch._private.telemetry import EventDeduper as _EventDeduper
+
+        self._func_runtimes: Dict[str, Deque[float]] = {}
+        self._straggler_dedup = _EventDeduper(rearm_s=None, max_keys=1024)
+        # tasks that entered RUNNING and have not been observed settled:
+        # the straggler scan walks THIS set (pruning settled ids lazily),
+        # not the never-pruned self.tasks table — O(running), not O(ever)
+        self._running_watch: Set[TaskID] = set()
+        self._straggler_count = 0
+        self._last_straggler_scan = time.monotonic()
+        # persisted worker-log files: filename -> open handle (bounded)
+        self._log_files: Dict[str, Any] = {}
+        # ---- telemetry plane (merged TelemetryBuffer batches) ----
+        # metric aggregation across processes: name -> {kind, description,
+        # per_proc: {pid: data}}; the merged view is written to the GCS KV
+        # so prometheus_text sees one coherent series per metric
+        self._metric_procs: Dict[str, dict] = {}
+        self._telemetry_batches = 0
+        self._telemetry_events = 0
+        self._telemetry_dropped = 0
+        # req_id -> [event, remaining-ack count] for cluster-wide flushes
+        self._telemetry_flush_waiters: Dict[str, list] = {}
+        # name-claimed actors whose creation spec has not arrived yet:
+        # actor_id -> deadline for the spec to land
+        self._placeholder_deadlines: Dict[ActorID, float] = {}
+        # handler instrumentation (parity: event_stats.h /
+        # instrumented_io_context): per-handler count + cumulative seconds
+        self._event_stats: Dict[str, List[float]] = collections.defaultdict(
+            lambda: [0, 0.0]
+        )
+        self._event_stats_last_print = time.monotonic()
+        # ownership-traffic instrumentation: every ref mutation and result
+        # commit the head processes (the decentralization metric — caller
+        # -owned results never appear here)
+        self._refop_count = 0
+        self._commit_count = 0
+        # ---- memory observability plane (allocation provenance + leak
+        # watchdog; see DESIGN_MAP "Memory observability") ----
+        # bounded provenance index: oid hex -> {oid, cs (creation callsite),
+        # kind, size, trace, t, job, task}; fed by telemetry object records,
+        # entries die with the object (_free_object) or via the watchdog's
+        # stale sweep (a record can race its own free)
+        self._obj_prov: Dict[str, dict] = {}
+        self._prov_dropped = 0
+        # leak watchdog: per-callsite (count, bytes) history over the last
+        # `leak_watchdog_window` scans; callsites currently flagged; event
+        # dedup gate so one leaking site emits at most one
+        # OBJECT_LEAK_SUSPECT per re-arm period
+        self._leak_history: Dict[str, Deque[Tuple[int, int]]] = {}
+        self._leak_suspects: Dict[str, dict] = {}
+        self._leak_events_total = 0
+        self._leak_dedup = _EventDeduper(rearm_s=60.0, max_keys=1024)
+        # object classification from the last scan (IN_USE /
+        # PINNED_BY_DEAD_OWNER / CAPTURED_IN_ACTOR / LEAK_SUSPECT):
+        # oid hex -> class, plus the aggregate per-class counts
+        self._obj_class: Dict[str, str] = {}
+        self._obj_class_counts: Dict[str, int] = {}
+        self._last_memscan = time.monotonic()
+        # store arena high-water mark (sealed+unsealed peak seen by the
+        # watchdog/metrics scans)
+        self._store_highwater = 0
+        # per-dispatch-pass node-candidate cache (None outside a pass)
+        self._pick_cache: Optional[Dict] = None
+        # object location directory: oid -> set of node ids with a sealed
+        # copy (parity: OwnershipBasedObjectDirectory,
+        # ownership_based_object_directory.h:37)
+        self._object_locations: Dict[ObjectID, Set[NodeID]] = collections.defaultdict(set)
+        # object sizes the head has learned (driver/worker puts, client
+        # uploads): feeds locality-aware dispatch scoring and transfer-byte
+        # accounting; entries die with the object (_free_object)
+        self._object_sizes: Dict[ObjectID, int] = {}
+        # locality-aware dispatch accounting: big-arg tasks that landed on
+        # (hit) / off (miss) a node already holding their argument bytes
+        self._locality_hits = 0
+        self._locality_misses = 0
+        # per-tick dispatch-pass duration histogram (metrics.py Histogram
+        # data shape, so /metrics renders _bucket lines); flatness of the
+        # mean across queue depths is the million-task acceptance signal
+        self._tick_boundaries = [
+            0.0001, 0.00025, 0.0005, 0.001, 0.0025, 0.005,
+            0.01, 0.025, 0.05, 0.1, 0.25, 0.5,
+        ]
+        self._tick_hist = {
+            "count": 0,
+            "sum": 0.0,
+            "buckets": [0] * (len(self._tick_boundaries) + 1),
+            "boundaries": list(self._tick_boundaries),
+        }
+        # ---- transfer-plane observability (netplane; see DESIGN_MAP
+        # "Transfer-plane observability") ----
+        # bounded per-(src, dst, path) link ledger: cumulative bytes /
+        # transfers / failures / stalls / throughput EWMA / relay hop
+        # high-water. Beyond net_links_max new links fold into <other>.
+        self._net_links: Dict[Tuple[str, str, str], dict] = {}
+        # bounded ring of completed transfer records (stage decompositions
+        # with trace ids) — the `ray_tpu_torch net transfers` / dashboard feed
+        self._net_recent: Deque[dict] = collections.deque(
+            maxlen=int(getattr(config, "net_recent_transfers_max", 512) or 512)
+        )
+        # stage-seconds totals across completed transfers (dial / request /
+        # first_byte_wait / wire / seal) + per-path throughput EWMA
+        self._net_stage_seconds: Dict[str, float] = {}
+        self._net_path_ewma: Dict[str, float] = {}
+        self._slow_link_events = 0
+        self._last_netscan = time.monotonic()
+        # event dedup gate: slow per link
+        self._slow_link_dedup = _EventDeduper(rearm_s=60.0, max_keys=1024)
+        # ---- control-plane observability (actor-launch lifecycle +
+        # worker-pool telemetry + decision flight recorder; see DESIGN_MAP
+        # "Control-plane observability") ----
+        # decision flight recorder: bounded ring of placement + autoscaler
+        # decision records ({seq, t, kind, ...}); appended from the loop
+        # (placement) and the autoscaler's record_decision rpc
+        self._decisions: Deque[dict] = collections.deque(
+            maxlen=int(getattr(config, "decision_log_max", 1024) or 1024)
+        )
+        self._decision_seq = 0
+        self._decision_counts: Dict[str, int] = {}
+        # guards seq/ring: autoscaler rpcs land off-loop
+        self._decision_lock = threading.Lock()
+        # completed actor-creation stage decompositions (launch-profile
+        # aggregate feed); oldest evicted
+        self._launch_recent: Deque[dict] = collections.deque(
+            maxlen=int(getattr(config, "launch_recent_max", 512) or 512)
+        )
+        # spawn accounting: wid -> (node_id, monotonic spawn start) for
+        # head-spawned workers whose ready ack has not arrived; feeds the
+        # spawn-latency histogram and WORKER_SPAWN_FAILED forensics
+        self._spawn_started: Dict[WorkerID, Tuple[NodeID, float]] = {}
+        self._spawn_total = 0
+        self._spawn_failed_total = 0
+        # consecutive spawn failures per node (reset on any success):
+        # crossing spawn_fail_fast_threshold fails pending creations fast
+        self._spawn_fail_streak: Dict[NodeID, int] = collections.defaultdict(int)
+        # spawn latency histogram (metrics.py Histogram data shape)
+        self._spawn_boundaries = [
+            0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0,
+        ]
+        self._spawn_hist = {
+            "count": 0,
+            "sum": 0.0,
+            "buckets": [0] * (len(self._spawn_boundaries) + 1),
+            "boundaries": list(self._spawn_boundaries),
+        }
+        # per-creation-stage seconds totals across completed launches
+        # (launch-profile aggregate + ray_tpu_torch_actor_launch_stage_seconds)
+        self._launch_stage_seconds: Dict[str, float] = {}
+        # worker boot-stage seconds (import / store_connect / serve_bind)
+        # riding the ready ack's optional third element
+        self._worker_boot_stage_seconds: Dict[str, float] = {}
+        self._launch_done_total = 0
+        # launch watchdog: (actor hex, stage) pairs already flagged so a
+        # stuck creation fires ACTOR_LAUNCH_STALLED at most once per stage
+        self._launch_dedup = _EventDeduper(rearm_s=None, max_keys=1024)
+        self._launch_stalled_total = 0
+        self._last_launch_scan = time.monotonic()
+        # ---- alerting & incident-forensics plane (SLO burn-rate
+        # evaluation + cross-plane root-cause digests; see DESIGN_MAP
+        # "Alerting & incidents") ----
+        self._incident_mgr = None
+        if getattr(config, "incident_plane_enabled", True) and getattr(
+            config, "telemetry_enabled", True
+        ):
+            from ray_tpu_torch._private.incidents import IncidentManager
+
+            self._incident_mgr = IncidentManager(self, config)
+        self._last_incident_scan = time.monotonic()
+        # zero-refcount frees deferred by a grace window (see _maybe_free).
+        # Only oids whose ref traffic ever crossed channels need it: those
+        # are tracked here; single-channel (owner-only) oids free on zero.
+        self._deferred_frees: collections.deque = collections.deque()
+        self._cross_channel: set = set()
+        # oid -> the FIRST channel (worker id, or None for the driver) its
+        # ref ops arrived on; a second channel's traffic promotes the oid
+        # to _cross_channel. Entries die with the object (_free_object).
+        self._ref_channel: Dict[ObjectID, Any] = {}
+        # general pubsub channels (parity: GCS pubsub, src/ray/pubsub/):
+        # channel -> {"workers": set[wid], "local": set[SimpleQueue]};
+        # publishes fan out at the head — worker subscribers get a pushed
+        # ("pubsub_msg", channel, blob) on their conn, in-process (driver)
+        # subscribers get the blob on their queue
+        self._pubsub: Dict[str, dict] = {}
+        # event-driven dispatch bookkeeping
+        self._dispatch_dirty = True
+        self._last_full_dispatch = 0.0
+        self._last_reap_scan = 0.0
+
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, name="ray_tpu_torch-scheduler", daemon=True)
+        self._started = threading.Event()
+
+    # ---- lifecycle -------------------------------------------------------
+
+    def start(self):
+        self._thread.start()
+        self._started.wait(5)
+
+    def shutdown(self):
+        self.post(("shutdown",))
+        self._thread.join(timeout=10)
+
+    def post(self, cmd: Tuple) -> None:
+        """Thread-safe command injection into the loop."""
+        self._cmd_queue.put(cmd)
+        # elide the wakeup syscall when one is already pending: high-rate
+        # posters (ObjectRef churn) otherwise pay a pipe write per op. The
+        # flag race is benign — a stale False costs one extra write; the loop
+        # clears the flag BEFORE draining, so a put landing after the drain
+        # starts sets it again and re-signals.
+        if not self._wakeup_pending:
+            self._wakeup_pending = True
+            try:
+                os.write(self._wakeup_w, b"x")
+            except OSError:
+                pass
+
+    # ---- main loop -------------------------------------------------------
+
+    def _run(self):
+        self._started.set()
+        self._loop_started_at = time.monotonic()
+        wake = self._wakeup_r
+        # persistent readiness registration (epoll via selectors): with a
+        # 1000-worker fleet, re-registering every conn per tick (mpc.wait)
+        # costs O(conns) syscalls per iteration — the fleet-launch falloff.
+        # Conns register once (here, lazily) and unregister on death.
+        import selectors
+
+        self._selector = sel = selectors.DefaultSelector()
+        sel.register(wake, selectors.EVENT_READ, None)
+        # conns created before the loop started (prestart workers) register
+        # via their worker_spawned cmds, which are still
+        # queued at this point — no sweep needed: every conn attach/detach
+        # happens ON this thread (posted cmds + death handlers)
+        while not self._stop.is_set():
+            try:
+                events = sel.select(timeout=0.2)
+            except OSError:
+                events = []
+            for key, _ in events:
+                r = key.data
+                if r is None:
+                    # clear the elision flag BEFORE draining the pipe/queue:
+                    # a post landing mid-drain must re-signal (see post())
+                    self._wakeup_pending = False
+                    try:
+                        os.read(wake, 4096)
+                    except OSError:
+                        pass
+                elif r in self._conn_to_worker:
+                    self._drain_worker(r)
+            while True:
+                try:
+                    cmd = self._cmd_queue.get_nowait()
+                except queue.Empty:
+                    break
+                try:
+                    t0 = time.perf_counter()
+                    self._handle_cmd(cmd)
+                    stat = self._event_stats[f"cmd.{cmd[0]}"]
+                    stat[0] += 1
+                    stat[1] += time.perf_counter() - t0
+                except Exception:
+                    logger.exception("scheduler command failed: %r", cmd[0])
+            self._schedule()
+            self._maybe_print_event_stats()
+        self._shutdown_workers()
+
+    def _sel_register(self, conn) -> None:
+        sel = getattr(self, "_selector", None)
+        if sel is None:
+            return
+        import selectors
+
+        try:
+            sel.register(conn, selectors.EVENT_READ, conn)
+        except (KeyError, ValueError, OSError):
+            pass
+
+    def _sel_unregister(self, conn) -> None:
+        sel = getattr(self, "_selector", None)
+        if sel is None:
+            return
+        try:
+            sel.unregister(conn)
+        except (KeyError, ValueError, OSError):
+            pass
+
+    def _maybe_print_event_stats(self):
+        interval = self.config.event_stats_print_interval_ms
+        if not interval:
+            return
+        now = time.monotonic()
+        if (now - self._event_stats_last_print) * 1000 < interval:
+            return
+        self._event_stats_last_print = now
+        rows = sorted(
+            self._event_stats.items(), key=lambda kv: kv[1][1], reverse=True
+        )[:15]
+        logger.info(
+            "event stats (count, total_ms, mean_us): %s",
+            {
+                k: (int(c), round(t * 1e3, 1), round(t / c * 1e6, 1))
+                for k, (c, t) in rows
+                if c
+            },
+        )
+
+    def _drain_worker(self, conn):
+        wid = self._conn_to_worker.get(conn)
+        if wid is None:
+            return
+        try:
+            while conn.poll(0):
+                msg = conn.recv()
+                t0 = time.perf_counter()
+                self._handle_worker_msg(wid, msg)
+                stat = self._event_stats[f"worker.{msg[0]}"]
+                stat[0] += 1
+                stat[1] += time.perf_counter() - t0
+        except (EOFError, OSError, pickle.UnpicklingError):
+            self._on_worker_death(wid)
+
+    # ---- worker messages -------------------------------------------------
+
+    def _handle_worker_msg(self, wid: WorkerID, msg: Tuple):
+        kind = msg[0]
+        w = self.workers.get(wid)
+        if w is None:
+            return
+        if kind == "ready":
+            self._dispatch_dirty = True
+            w.state = "idle"
+            w.idle_since = time.monotonic()
+            if len(msg) > 1:
+                w.direct_addr = msg[1]
+            self._starting_count[w.node_id] = max(0, self._starting_count[w.node_id] - 1)
+            # worker-pool telemetry: spawn settled — fold the fork->ready
+            # latency into the spawn histogram (stamped when the head
+            # issued spawn_worker) and clear the node's failure streak
+            spawn = self._spawn_started.pop(wid, None)
+            if spawn is not None:
+                lat = time.monotonic() - spawn[1]
+                h = self._spawn_hist
+                h["count"] += 1
+                h["sum"] += lat
+                for i, b in enumerate(self._spawn_boundaries):
+                    if lat <= b:
+                        h["buckets"][i] += 1
+                        break
+                else:
+                    h["buckets"][-1] += 1
+            self._spawn_fail_streak.pop(w.node_id, None)
+            # optional worker boot-stage split rides the SAME ready message
+            # as a third element (older workers send two — both accepted)
+            if len(msg) > 2 and isinstance(msg[2], dict):
+                for k, v in msg[2].items():
+                    self._worker_boot_stage_seconds[k] = (
+                        self._worker_boot_stage_seconds.get(k, 0.0)
+                        + float(v) / 1000.0
+                    )
+            if w.actor_id is None:
+                self._idle_by_node[w.node_id].append(wid)
+            # an active profiler-boost window covers late-spawned workers
+            # too (request_profile during a cold start would otherwise only
+            # reach the workers alive at call time)
+            boost = getattr(self, "_profile_boost", None)
+            if boost is not None:
+                hz, deadline = boost
+                remaining = deadline - time.monotonic()
+                if remaining > 0.05:
+                    try:
+                        w.conn.send(("profile", hz, remaining))
+                    except (OSError, EOFError):
+                        pass
+                else:
+                    self._profile_boost = None
+        elif kind == "task_done":
+            _, task_id, results, cuda_initialized = msg
+            self._on_task_done(wid, task_id, results, cuda_initialized)
+        elif kind == "submit":
+            spec: TaskSpec = msg[1]
+            self.submit(spec)
+        elif kind == "pull":
+            _, req_id, oids = msg
+            self._handle_pull(wid, req_id, oids)
+        elif kind == "block_begin":
+            if w.state == "busy" and w.actor_id is None:
+                w.state = "blocked"
+                if w.acquired and w.acquired_node is not None:
+                    # flat resources oversubscribe while blocked (reference
+                    # behavior), but device INSTANCES stay assigned — the
+                    # parked task resumes on its chips; freeing them here
+                    # would double-book the chip under a concurrent task
+                    accel, anode = w.accel_alloc, w.accel_node
+                    w.accel_alloc, w.accel_node = {}, None
+                    self._release_resources(w)
+                    w.accel_alloc, w.accel_node = accel, anode
+        elif kind == "block_end":
+            if w.state == "blocked":
+                w.state = "busy"
+                # note: resources are NOT re-acquired (may oversubscribe while
+                # unblocking; matches the reference's blocked-worker behavior)
+        elif kind == "actor_exit":
+            # graceful actor termination (ray.kill / __ray_terminate__)
+            self._on_worker_death(wid, graceful=True)
+        elif kind == "submit_put":
+            if len(msg) > 2 and msg[2]:
+                self._note_object_size(msg[1], int(msg[2]))
+            if len(msg) > 3 and msg[3]:
+                self._ingest_put_prov(msg[1], int(msg[2] or 0), msg[3])
+            self._object_locations[msg[1]].add(self._loc_node(w.node_id))
+            self._commit_result(msg[1], ("stored",))
+        elif kind == "put_object":
+            # cross-machine driver upload: the bytes ride the control socket
+            # into the head store (parity: Ray Client puts proxied through
+            # the server, util/client/server)
+            _, oid, blob = msg
+            try:
+                self._node.store_client.put_bytes(oid, blob)
+                self._object_locations[oid].add(self._node.head_node_id)
+                self._note_object_size(oid, len(blob))
+                self._commit_result(oid, ("stored",))
+            except Exception as e:  # noqa: BLE001
+                logger.exception("client put of %s failed", oid.hex()[:8])
+                # surface the failure to consumers instead of hanging them
+                err_cls = (
+                    exc.ObjectStoreFullError
+                    if isinstance(e, StoreFullError)
+                    else exc.RayTpuError
+                )
+                self._commit_result(
+                    oid,
+                    (
+                        "error",
+                        pickle.dumps(
+                            err_cls(f"client upload of {oid.hex()} failed: {e!r}")
+                        ),
+                    ),
+                )
+        elif kind == "log":
+            # legacy per-line worker stdout/stderr (telemetry disabled);
+            # parity: python/ray/_private/log_monitor.py. Routed through the
+            # same echo+persist path as structured batches.
+            _, stream, pid, line = msg
+            name = None
+            if w.current_task is not None:
+                trec = self.tasks.get(w.current_task)
+                if trec is not None:
+                    name = trec.spec.name
+            self._handle_log_record(
+                {
+                    "time": time.time(),
+                    "stream": stream,
+                    "pid": pid,
+                    "line": line,
+                    "task_name": name,
+                    "task_id": w.current_task.hex() if w.current_task else None,
+                },
+                holder=wid,
+            )
+        elif kind == "cmd":
+            # holder: ref borrows from this worker are attributed to it so
+            # a crashed borrower's refs get released, not leaked
+            self._handle_cmd(msg[1], holder=wid)
+        elif kind == "telemetry_ack":
+            # the worker drained its TelemetryBuffer; its batch (same pipe,
+            # FIFO) has already been ingested above this ack
+            self._on_telemetry_ack(msg[1])
+        elif kind == "rpc":
+            _, req_id, op, args = msg
+            if op == "ensure_local_traced":
+                # traced variant: (oid, (trace_id, span_id)) — destination
+                # is the calling worker's node, and the requester ctx lets
+                # the transfer's wire span join the task's trace tree
+                op = "ensure_local"
+                args = (args[0], w.node_id) + tuple(args[1:])
+            elif op in ("ensure_local", "same_host_dirs") and len(args) == 1:
+                # destination defaults to the calling worker's node
+                args = (args[0], w.node_id)
+            try:
+                result = self._serve_rpc(op, args)
+            except Exception as e:  # noqa: BLE001
+                result = e
+            try:
+                w.conn.send(("rpc_reply", req_id, result))
+            except (OSError, EOFError):
+                self._on_worker_death(wid)
+        elif kind == "generator_item":
+            _, task_id, index, entry = msg
+            # streaming generator item: task_id's return stream index -> object
+            oid = ObjectID.for_return(TaskID(task_id.binary()), index)
+            if entry[0] == "stored":
+                self._object_locations[oid].add(self._loc_node(w.node_id))
+            self._commit_result(oid, entry)
+        else:
+            logger.warning("unknown worker message: %r", kind)
+
+    def _same_host_dirs_for(self, oid: ObjectID, node_id: NodeID) -> tuple:
+        """shm dirs of colocated nodes holding oid (zero-copy read set)."""
+        if not self.config.same_host_shm_transfer:
+            return ()
+        dest = self._loc_node(node_id)
+        dn = self.nodes.get(dest)
+        if dn is None or not dn.host_id:
+            return ()
+        return tuple(
+            sn.shm_dir
+            for s in self._object_locations.get(oid, ())
+            if (sn := self.nodes.get(s)) is not None
+            and s != dest
+            and sn.host_id == dn.host_id
+            and sn.shm_dir
+        )
+
+    def _stored_entry_for(self, oid: ObjectID, entry: Tuple, node_id: NodeID) -> Tuple:
+        """Augment a ("stored",) entry with same-host zero-copy dirs so the
+        consumer can map a peer store immediately instead of paying another
+        rpc round-trip (or a byte copy)."""
+        if entry[0] != "stored":
+            return entry
+        dirs = self._same_host_dirs_for(oid, node_id)
+        return ("stored", dirs) if dirs else entry
+
+    def _handle_pull(self, wid: WorkerID, req_id: int, oids: List[ObjectID]):
+        w = self.workers[wid]
+        reply: Dict[ObjectID, Tuple] = {}
+        for oid in oids:
+            entry = self.memory_store.get_entry(oid)
+            if entry is None:
+                self._pull_waiters[oid].append((wid, req_id))
+                # re-check AFTER parking: direct-plane commits land in the
+                # shared store off-loop and only nudge us when a waiter is
+                # visible — park-then-recheck closes the race with their
+                # put-then-probe (one side always sees the other)
+                entry = self.memory_store.get_entry(oid)
+                if entry is not None:
+                    self._pull_waiters[oid].remove((wid, req_id))
+                    if not self._pull_waiters[oid]:
+                        del self._pull_waiters[oid]
+            if entry is not None:
+                if entry[0] == "stored":
+                    entry = self._stored_entry_for(oid, entry, w.node_id)
+                    if len(entry) == 1:  # no zero-copy peer: start a transfer
+                        self._ensure_local(oid, w.node_id)
+                reply[oid] = entry
+            else:
+                reply[oid] = ("pending",)
+        try:
+            w.conn.send(("pull_reply", req_id, reply))
+        except (OSError, EOFError):
+            self._on_worker_death(wid)
+
+    # ---- object locations (parity: the object directory,
+    # object_manager.h:117; every node here shares the head's store) -------
+
+    def _loc_node(self, node_id: NodeID) -> NodeID:
+        """Canonical store-owning node: every node of this runtime (the head
+        and its virtual nodes) shares the head's store."""
+        return self._node.head_node_id
+
+    def _ensure_local(self, oid: ObjectID, dest: NodeID) -> None:
+        """Every node reads the head's store, so there is nothing to move:
+        an object with no copy left is rebuilt from its lineage."""
+        if not self._object_locations.get(oid):
+            self._recover_object(oid)
+
+    def _recover_object(self, oid: ObjectID, depth: int = 0) -> bool:
+        """Owner-driven lineage reconstruction: re-execute the creating task
+        when every copy of a stored object has been lost (node death).
+
+        Parity: ``ObjectRecoveryManager`` — algorithm documented at
+        ``src/ray/core_worker/object_recovery_manager.h:70-84`` — honoring
+        the task's ``max_retries`` budget. Put objects have no lineage and
+        stay lost (the reference behaves the same).
+        """
+        if depth > 20:
+            return False
+        entry = self.memory_store.get_entry(oid)
+        if entry is not None and entry[0] != "stored":
+            return True  # inline/error entries are never lost
+        if self._object_locations.get(oid):
+            return True  # a copy still exists
+        if self._node.store_client.contains(oid):
+            # head store holds it (put objects / head-task returns)
+            self._object_locations[oid].add(self._node.head_node_id)
+            return True
+        if oid.is_put():
+            return False
+        rec = self.tasks.get(oid.task_id())
+        if rec is None or rec.spec.task_type == TaskType.ACTOR_CREATION:
+            return False
+        if rec.state in ("PENDING", "WAITING_DEPS", "SCHEDULED"):
+            return True  # already being recomputed
+        if rec.state == "RUNNING":
+            return True  # will recommit on completion
+        if rec.retries_left <= 0:
+            return False
+        rec.retries_left -= 1
+        logger.info(
+            "reconstructing %s via re-execution of %s (retries left %d)",
+            oid.hex()[:8],
+            rec.spec.name or oid.task_id().hex()[:8],
+            rec.retries_left,
+        )
+        self.record_cluster_event(
+            "OBJECT_LOST",
+            f"every copy of {oid.hex()[:16]} was lost; reconstructing via "
+            f"re-execution of {rec.spec.name or oid.task_id().hex()[:12]}",
+            severity="WARNING",
+            object_id=oid.hex(),
+            task_id=rec.spec.task_id.hex(),
+            retries_left=rec.retries_left,
+        )
+        # evict lost returns so consumers wait for the recomputation
+        for ret in rec.spec.return_ids():
+            if not self._object_locations.get(ret) and not self._node.store_client.contains(ret):
+                self.memory_store.evict(ret)
+                self._object_locations.pop(ret, None)
+        # recursively recover lost args, then let dependency tracking gate
+        for arg_oid in rec.spec.arg_ref_ids():
+            e = self.memory_store.get_entry(arg_oid)
+            if (
+                e is not None
+                and e[0] == "stored"
+                and not self._object_locations.get(arg_oid)
+                and not self._node.store_client.contains(arg_oid)
+            ):
+                if self._recover_object(arg_oid, depth + 1):
+                    self.memory_store.evict(arg_oid)
+                else:
+                    self._fail_task(
+                        rec,
+                        exc.ObjectLostError(
+                            f"arg {arg_oid.hex()} of {rec.spec.name} is lost "
+                            "and cannot be reconstructed"
+                        ),
+                    )
+                    return False
+        self._record_event(rec.spec, "RECONSTRUCTING")
+        rec.worker_id = None
+        deps = self._unresolved_deps(rec.spec)
+        if deps:
+            rec.state = "WAITING_DEPS"
+            rec.unresolved_deps = deps
+            for d in deps:
+                self._dep_waiters[d].add(rec.spec.task_id)
+        else:
+            self._make_schedulable(rec)
+        return True
+
+    # ---- transfer-plane observability (netplane; DESIGN_MAP
+    # "Transfer-plane observability") --------------------------------------
+
+    _NET_STAGE_KEYS = _netplane.STAGE_KEYS
+
+    def _node_label(self, nid: NodeID) -> str:
+        return "head" if nid == self._node.head_node_id else nid.hex()[:12]
+
+    def _link_row(self, src: str, dst: str, path: str) -> dict:
+        """Get-or-create one link-ledger row; beyond ``net_links_max`` new
+        links collapse into a per-path <other> row (bounded cardinality)."""
+        key = (src, dst, path)
+        row = self._net_links.get(key)
+        if row is None:
+            cap = int(getattr(self.config, "net_links_max", 4096) or 4096)
+            if len(self._net_links) >= cap:
+                key = ("<other>", "<other>", path)
+                row = self._net_links.get(key)
+                if row is not None:
+                    return row
+            row = self._net_links[key] = {
+                "src": key[0],
+                "dst": key[1],
+                "path": path,
+                "bytes": 0,
+                "transfers": 0,
+                "failures": 0,
+                "stalls": 0,
+                "samples": 0,
+                "ewma_gib_per_s": None,
+                "max_hop": 0,
+                "last_t": 0.0,
+                "slow": False,
+            }
+        return row
+
+    def _fold_link_throughput(
+        self, row: dict, path: str, nbytes: int, wire_s: float
+    ) -> Optional[float]:
+        """Fold one completed transfer's measured rate into the link's and
+        the path's throughput EWMA (transfers under ``slow_link_min_bytes``
+        skip the EWMA — dial/framing dominates them). Returns the raw
+        GiB/s, or None when unmeasurable."""
+        if wire_s <= 0 or not nbytes:
+            return None
+        gibps = nbytes / 2**30 / wire_s
+        if nbytes >= int(
+            getattr(self.config, "slow_link_min_bytes", 1 << 20) or 0
+        ):
+            prev = row["ewma_gib_per_s"]
+            row["ewma_gib_per_s"] = (
+                gibps if prev is None else 0.3 * gibps + 0.7 * prev
+            )
+            row["samples"] += 1
+            pp = self._net_path_ewma.get(path)
+            self._net_path_ewma[path] = (
+                gibps if pp is None else 0.3 * gibps + 0.7 * pp
+            )
+        return gibps
+
+    def _ingest_transfer_record(self, rec, holder=None, dst_node=None) -> None:
+        """One read record off the telemetry ring (worker zero-copy peer
+        reads, driver/worker spill restores). Compact positional tuple —
+        see ``netplane.record_read``."""
+        try:
+            path, oid_bin, nbytes, wire_s, t0, src_shm_dir, trace_id = rec
+        except (TypeError, ValueError):
+            return
+        if dst_node is not None:
+            dst = dst_node
+        elif holder is not None:
+            w = self.workers.get(holder)
+            dst = (
+                self._loc_node(w.node_id)
+                if w is not None
+                else self._node.head_node_id
+            )
+        else:
+            dst = self._node.head_node_id
+        dst_l = self._node_label(dst)
+        src_l = "disk" if path == "spill" else "<peer>"
+        if src_shm_dir:
+            for nid, n in self.nodes.items():
+                if n.shm_dir == src_shm_dir:
+                    src_l = self._node_label(nid)
+                    break
+        nbytes = int(nbytes or 0)
+        wire_s = float(wire_s or 0.0)
+        row = self._link_row(src_l, dst_l, str(path))
+        row["transfers"] += 1
+        row["bytes"] += nbytes
+        row["last_t"] = time.time()
+        # rate only for spill restores (a real disk read): a zero-copy
+        # peer MAPPING moves no bytes, so its duration is not a wire
+        gibps = (
+            self._fold_link_throughput(row, str(path), nbytes, wire_s)
+            if path == "spill"
+            else None
+        )
+        try:
+            job = oid_bin[20:24].hex()
+            oid_hex = oid_bin.hex()
+        except Exception:
+            job, oid_hex = "unknown", "?"
+        self._net_recent.append(
+            {
+                "object_id": oid_hex,
+                "src": src_l,
+                "dst": dst_l,
+                "path": str(path),
+                "hop": 0,
+                "bytes": nbytes,
+                "chunks": None,
+                "ok": True,
+                "gib_per_s": round(gibps, 4) if gibps is not None else None,
+                "stages_ms": {"wire_ms": round(wire_s * 1e3, 3)},
+                "total_ms": round(wire_s * 1e3, 3),
+                "t0": t0,
+                "job": job,
+                "trace_id": trace_id,
+                "error": None,
+            }
+        )
+
+    def _maybe_net_scan(self) -> None:
+        if not getattr(self.config, "transfer_plane_enabled", True) or not (
+            getattr(self.config, "telemetry_enabled", True)
+        ):
+            return
+        now = time.monotonic()
+        if now - self._last_netscan < 1.0:
+            return
+        self._last_netscan = now
+        self._net_watchdog_scan()
+
+    def _net_watchdog_scan(self) -> None:
+        """1 Hz link watchdog: socket/relay links whose throughput EWMA
+        sits below ``slow_link_fraction`` x the fleet median get a
+        ``SLOW_LINK`` event with exemplar oids and trace ids."""
+        now_m = time.monotonic()
+        # slow links: EWMA vs fleet median over socket/relay links with
+        # enough samples. Needs >= 2 comparable links — a single link has
+        # no fleet to be slower than (calm clusters stay silent).
+        frac = float(getattr(self.config, "slow_link_fraction", 0.3) or 0.3)
+        candidates = [
+            (key, row)
+            for key, row in self._net_links.items()
+            if row["path"] in ("socket", "relay")
+            and row["samples"] >= 3
+            and row["ewma_gib_per_s"]
+        ]
+        if len(candidates) < 2:
+            return
+        import statistics
+
+        med = statistics.median(r["ewma_gib_per_s"] for _, r in candidates)
+        for key, row in candidates:
+            slow = med > 0 and row["ewma_gib_per_s"] < frac * med
+            row["slow"] = slow
+            if not slow:
+                continue
+            if not self._slow_link_dedup.should_fire(key, now_m):
+                continue
+            self._slow_link_events += 1
+            exemplars = [
+                r
+                for r in reversed(self._net_recent)
+                if r["src"] == row["src"] and r["dst"] == row["dst"]
+            ][:3]
+            self.record_cluster_event(
+                "SLOW_LINK",
+                f"link {row['src']}->{row['dst']} ({row['path']}) EWMA "
+                f"{row['ewma_gib_per_s']:.4f} GiB/s sits below "
+                f"{frac:g}x the fleet median {med:.4f} GiB/s",
+                severity="WARNING",
+                link=f"{row['src']}->{row['dst']}",
+                path=row["path"],
+                gib_per_s=round(row["ewma_gib_per_s"], 4),
+                fleet_median_gib_per_s=round(med, 4),
+                exemplar_object_ids=[r["object_id"] for r in exemplars],
+                exemplar_trace_ids=[
+                    r["trace_id"] for r in exemplars if r.get("trace_id")
+                ],
+            )
+
+    def _net_link_rows(self, limit: int = 10_000) -> List[dict]:
+        rows = sorted(self._net_links.values(), key=lambda r: -r["bytes"])
+        out = []
+        for r in rows[: int(limit)]:
+            d = dict(r)
+            if d["ewma_gib_per_s"] is not None:
+                d["ewma_gib_per_s"] = round(d["ewma_gib_per_s"], 4)
+            out.append(d)
+        return out
+
+    def _net_summarize(self, group_by: str, limit: int = 50) -> dict:
+        """Server-side transfer grouping: by link (src->dst with per-path
+        split) or path (totals + stage seconds)."""
+        header = {
+            "group_by": group_by,
+            "slow_link_events": self._slow_link_events,
+            "stage_seconds": {
+                k: round(v, 4) for k, v in self._net_stage_seconds.items()
+            },
+        }
+        groups: Dict[str, dict] = {}
+        if group_by == "link":
+            for r in self._net_links.values():
+                g = groups.setdefault(
+                    f"{r['src']}->{r['dst']}",
+                    {"bytes": 0, "transfers": 0, "failures": 0, "stalls": 0,
+                     "paths": {}, "slow": False, "max_hop": 0},
+                )
+                g["bytes"] += r["bytes"]
+                g["transfers"] += r["transfers"]
+                g["failures"] += r["failures"]
+                g["stalls"] += r["stalls"]
+                g["paths"][r["path"]] = g["paths"].get(r["path"], 0) + r["bytes"]
+                g["slow"] = g["slow"] or r["slow"]
+                g["max_hop"] = max(g["max_hop"], r["max_hop"])
+                if r["ewma_gib_per_s"] is not None:
+                    # pessimistic across the link's paths: the SLOWEST
+                    # rate is the one worth surfacing (a fast spill row
+                    # must not mask a slow socket)
+                    cur = g.get("gib_per_s")
+                    rate = round(r["ewma_gib_per_s"], 4)
+                    g["gib_per_s"] = rate if cur is None else min(cur, rate)
+        elif group_by == "path":
+            for r in self._net_links.values():
+                g = groups.setdefault(
+                    r["path"],
+                    {"bytes": 0, "transfers": 0, "failures": 0, "stalls": 0},
+                )
+                g["bytes"] += r["bytes"]
+                g["transfers"] += r["transfers"]
+                g["failures"] += r["failures"]
+                g["stalls"] += r["stalls"]
+            for p, v in self._net_path_ewma.items():
+                groups.setdefault(
+                    p, {"bytes": 0, "transfers": 0, "failures": 0, "stalls": 0}
+                )["gib_per_s"] = round(v, 4)
+        else:
+            raise ValueError(
+                f"summarize_transfers: unknown group_by {group_by!r} "
+                "(want link | path)"
+            )
+        rows = [
+            {"group": k, **v}
+            for k, v in sorted(
+                groups.items(), key=lambda kv: -kv[1]["bytes"]
+            )
+        ]
+        header["truncated"] = len(rows) > int(limit)
+        header["rows"] = rows[: int(limit)]
+        return header
+
+    # ---- command handling ------------------------------------------------
+
+    def _handle_cmd(self, cmd: Tuple, holder=None):
+        kind = cmd[0]
+        if kind == "submit":
+            self._on_submit(cmd[1])
+        elif kind == "profile_event":
+            # user-annotated span (profiling.profile); joins the task event
+            # log so ray_tpu_torch.timeline() shows it (TaskEventBuffer role).
+            # Kept for compatibility — spans now normally arrive batched
+            # inside telemetry_batch messages.
+            self._append_profile_span(cmd[1])
+        elif kind == "telemetry_batch":
+            # one process's TelemetryBuffer flush: task events, profile
+            # spans, coalesced metric snapshots, dropped-event accounting
+            # (parity: GcsTaskManager ingesting TaskEventBuffer batches).
+            # holder (the sending worker's id) disambiguates processes:
+            # pids repeat across nodes/containers
+            self._ingest_telemetry(cmd[1], holder=holder)
+        elif kind == "telemetry_flush_bcast":
+            self._broadcast_telemetry_flush(cmd[1])
+        elif kind == "put_done":
+            if cmd[2][0] == "stored":
+                self._object_locations[cmd[1]].add(self._node.head_node_id)
+                if len(cmd) > 3 and cmd[3]:
+                    self._note_object_size(cmd[1], int(cmd[3]))
+                if len(cmd) > 4 and cmd[4]:
+                    self._ingest_put_prov(cmd[1], int(cmd[3] or 0), cmd[4])
+            self._commit_result(cmd[1], cmd[2])
+        elif kind == "protect":
+            # preemption shield window (mid-commit checkpoint save): victim
+            # selection skips this worker while the count is positive
+            if holder is not None:
+                w = self.workers.get(holder)
+                if w is not None:
+                    w.protect_count = max(0, w.protect_count + int(cmd[1]))
+        elif kind == "add_node":
+            self._dispatch_dirty = True
+            node: NodeState = cmd[1]
+            self.nodes[node.node_id] = node
+            self.record_cluster_event(
+                "NODE_ADDED",
+                f"node {node.node_id.hex()[:12]} joined "
+                f"(total={dict(node.total)})",
+                source="AUTOSCALER",
+                node_id=node.node_id.hex(),
+            )
+            self._retry_pending_pgs()
+        elif kind == "remove_node":
+            self._on_remove_node(cmd[1])
+        elif kind == "worker_spawned":
+            self._dispatch_dirty = True
+            _, wstate = cmd
+            self.workers[wstate.worker_id] = wstate
+            self._conn_to_worker[wstate.conn] = wstate.worker_id
+            self._sel_register(wstate.conn)
+        elif kind == "kill_actor":
+            _, actor_id, no_restart = cmd
+            self._kill_actor(actor_id, no_restart)
+        elif kind == "handle_count":
+            _, actor_id, delta = cmd
+            st = self.actors.get(actor_id)
+            if st is not None:
+                st.num_handles += delta
+                # out-of-scope actors terminate like the reference's
+                # GcsActorManager handle tracking; named and detached actors
+                # live until an explicit kill
+                if (
+                    st.num_handles <= 0
+                    and st.name is None
+                    and not st.detached
+                    and st.state != "DEAD"
+                ):
+                    if st.outstanding > 0:
+                        # let submitted calls finish first (the completion
+                        # path performs the deferred kill)
+                        st.pending_kill = True
+                    else:
+                        self._kill_actor(actor_id, no_restart=True)
+                elif st.num_handles > 0:
+                    st.pending_kill = False
+        elif kind == "create_pg":
+            self._dispatch_dirty = True
+            self._create_pg(cmd[1])
+        elif kind == "remove_pg":
+            self._dispatch_dirty = True
+            self._remove_pg(cmd[1])
+        elif kind == "add_ref":
+            for oid in cmd[1]:
+                self._apply_ref_op(1, oid, holder=holder)
+        elif kind == "pin_args":
+            # scheduler-released in-flight pins: never holder-attributed
+            # (see WorkerRuntime.submit)
+            for oid in cmd[1]:
+                self._cross_channel.add(oid)
+                self._apply_ref_op(1, oid)
+        elif kind == "unpin_args":
+            # direct-plane callers release their own in-flight pins when the
+            # result arrives (the head never sees those completions)
+            self._cross_channel.update(cmd[1])
+            self._unpin(cmd[1])
+        elif kind == "direct_publish":
+            # ownership escalation: a caller-owned direct-call result escaped
+            # its owning process — commit the value (inline; stored ones were
+            # already registered via submit_put) and absorb the accumulated
+            # local refcount. Attributed to the publishing worker so a crash
+            # releases them (borrower semantics, reference_count.h:61).
+            for oid, entry, _src_dir, count in cmd[1]:
+                if entry is not None:
+                    self._commit_result(oid, entry)
+                else:
+                    e = self.memory_store.get_entry(oid)
+                    if e is not None:
+                        self._wake_waiters(oid, e)
+                self._cross_channel.add(oid)
+                if count:
+                    self._ref_counts[oid] += count
+                    if holder is not None:
+                        held = self._holder_refs.setdefault(holder, {})
+                        held[oid] = held.get(oid, 0) + count
+        elif kind == "direct_wake":
+            # a direct-call result was committed into the shared memory store
+            # off-loop; wake anything parked on it here
+            for oid in cmd[1]:
+                e = self.memory_store.get_entry(oid)
+                if e is not None:
+                    self._wake_waiters(oid, e)
+        elif kind == "pubsub_publish":
+            self._pubsub_fanout(cmd[1], cmd[2])
+        elif kind == "pubsub_sub":
+            ch = self._pubsub.setdefault(
+                cmd[1], {"workers": set(), "local": set()}
+            )
+            if holder is not None:
+                ch["workers"].add(holder)
+            else:
+                ch["local"].add(cmd[2])
+        elif kind == "pubsub_unsub":
+            ch = self._pubsub.get(cmd[1])
+            if ch is not None:
+                if holder is not None:
+                    ch["workers"].discard(holder)
+                elif len(cmd) > 2:
+                    ch["local"].discard(cmd[2])
+                if not ch["workers"] and not ch["local"]:
+                    del self._pubsub[cmd[1]]
+        elif kind == "ref_batch":
+            # ordered batch of ref ops: (1, oid) add, (-1, oid) remove,
+            # (2, oid, token) transit pin, (3, oid, token) transit release;
+            # order within the batch matters
+            for entry in cmd[1]:
+                self._apply_ref_op(
+                    entry[0],
+                    entry[1],
+                    holder=holder,
+                    token=entry[2] if len(entry) > 2 else None,
+                )
+        elif kind == "remove_ref":
+            for oid in cmd[1]:
+                self._apply_ref_op(-1, oid, holder=holder)
+        elif kind == "cancel":
+            self._cancel_task(cmd[1], force=cmd[2])
+        elif kind == "local_rpc":
+            _, op, args, event, box = cmd
+            try:
+                box["result"] = self._serve_rpc(op, args)
+            except Exception as e:  # noqa: BLE001
+                box["result"] = e
+            event.set()
+        elif kind == "shutdown":
+            self._stop.set()
+        else:
+            logger.warning("unknown scheduler command %r", kind)
+
+    # ---- submission & scheduling ----------------------------------------
+
+    def submit(self, spec: TaskSpec) -> None:
+        self.post(("submit", spec))
+
+    def _on_submit(self, spec: TaskSpec):
+        rec = TaskRecord(spec=spec, retries_left=spec.max_retries)
+        self.tasks[spec.task_id] = rec
+        # ref args will be pinned/unpinned across channels (submitter pin,
+        # completion unpin): their zeros need the deferred-free grace.
+        # Only live oids (submitter's pin precedes submit on its channel,
+        # so count >= 1 here) — a ref to an already-freed object must not
+        # park in the set forever
+        for a in list(spec.args) + list(spec.kwargs.values()):
+            if (
+                a.is_ref
+                and a.object_id is not None
+                and a.object_id in self._ref_counts
+            ):
+                self._cross_channel.add(a.object_id)
+        self._record_event(spec, "SUBMITTED")
+        if spec.task_type == TaskType.ACTOR_CREATION:
+            st = self.actors.get(spec.actor_id)
+            if st is not None and st.creation_spec is None and st.state == "DEAD":
+                # the placeholder deadline expired and released the name;
+                # resurrecting it could shadow a newer claimant of that name
+                self._fail_task(
+                    rec,
+                    exc.ActorDiedError(
+                        spec.actor_id, st.death_cause or "actor creation timed out"
+                    ),
+                )
+                return
+            if st is not None and st.creation_spec is None:
+                # fill in the placeholder pre-registered at name-claim time;
+                # method calls that raced ahead are queued in pending_calls
+                st.creation_spec = spec
+                st.restarts_left = spec.max_restarts
+                st.name = spec.actor_name
+                st.namespace = spec.namespace or "default"
+                st.detached = spec.detached
+                st.max_task_retries = spec.max_task_retries
+                self._placeholder_deadlines.pop(spec.actor_id, None)
+                # calls queued against the placeholder inherited a zero
+                # retry budget; backfill it
+                for queued in st.pending_calls:
+                    qrec = self.tasks.get(queued.task_id)
+                    if qrec is not None and qrec.retries_left == 0:
+                        qrec.retries_left = spec.max_task_retries
+            else:
+                st = ActorState(
+                    actor_id=spec.actor_id,
+                    creation_spec=spec,
+                    restarts_left=spec.max_restarts,
+                    name=spec.actor_name,
+                    namespace=spec.namespace or "default",
+                    detached=spec.detached,
+                    max_task_retries=spec.max_task_retries,
+                )
+                self.actors[spec.actor_id] = st
+            # launch lifecycle: root stamp (the creation trace id joins the
+            # ctx minted by Actor.remote(), so ray_tpu_torch.trace sees one tree)
+            st.launch_stage = "submitted"
+            st.stage_ts["submitted"] = self._pass_now or time.time()
+            if spec.trace_ctx:
+                st.launch_trace = spec.trace_ctx[0]
+            if spec.actor_name:
+                self.gcs.claim_actor_name(st.namespace, spec.actor_name, spec.actor_id)
+        if spec.task_type == TaskType.ACTOR_TASK:
+            actor = self.actors.get(spec.actor_id)
+            if actor is None or actor.state == "DEAD":
+                reason = actor.death_cause if actor else "actor not found"
+                self._fail_task(
+                    rec,
+                    exc.ActorDiedError(
+                        spec.actor_id, reason or "actor died", task_started=False
+                    ),
+                )
+                return
+            # method calls inherit the actor's per-task retry budget
+            rec.retries_left = actor.max_task_retries
+            actor.outstanding += 1
+        # dependency check
+        deps = self._unresolved_deps(spec)
+        if deps:
+            rec.state = "WAITING_DEPS"
+            rec.unresolved_deps = deps
+            for d in deps:
+                self._dep_waiters[d].add(spec.task_id)
+            # re-check AFTER parking: direct-plane commits land in the shared
+            # store off-loop (see _handle_pull for the race argument)
+            for d in list(deps):
+                if self.memory_store.contains(d):
+                    rec.unresolved_deps.discard(d)
+                    waiters = self._dep_waiters.get(d)
+                    if waiters is not None:
+                        waiters.discard(spec.task_id)
+                        if not waiters:
+                            del self._dep_waiters[d]
+            if not rec.unresolved_deps:
+                self._make_schedulable(rec)
+        else:
+            self._make_schedulable(rec)
+
+    def _unresolved_deps(self, spec: TaskSpec) -> Set[ObjectID]:
+        deps = set()
+        for a in itertools.chain(spec.args, spec.kwargs.values()):
+            if a.is_ref and a.object_id is not None:
+                if not self.memory_store.contains(a.object_id):
+                    deps.add(a.object_id)
+        return deps
+
+    # ---- sharded ready queue ---------------------------------------------
+
+    def _shard_key(self, spec: TaskSpec) -> Tuple:
+        """Shard key = (job, scheduling class): every shard belongs to one
+        job, so the shard map doubles as the per-job sub-queue index the
+        DWRR pass arbitrates between. Per-task placement work (node
+        affinity, PG bundles) keeps the bounded-scan discipline inside a
+        per-job OTHER shard."""
+        job = spec.task_id.job_id().binary()
+        strat = spec.scheduling_strategy
+        if strat.kind in ("DEFAULT", "SPREAD"):
+            return (
+                job,
+                strat.kind,
+                spec.task_type.value,
+                tuple(sorted(spec.resources.items())),
+            )
+        return (job, "OTHER")
+
+    def _ready_push(self, rec: TaskRecord, front: bool = False) -> None:
+        """Queue a PENDING task in its shard. ``front`` re-queues a popped
+        head whose placement just failed — that must NOT re-dirty dispatch
+        (the fleet didn't change; a blocked shard would otherwise force a
+        full pass every loop iteration) and must NOT reset the starvation
+        clock (the preemption scan measures time since the attempt first
+        became ready, not since its last failed placement probe)."""
+        spec = rec.spec
+        key = self._shard_key(spec)
+        shard = self._ready_shards.get(key)
+        if shard is None:
+            shard = self._ready_shards[key] = _ReadyShard(
+                key=key,
+                kind=spec.scheduling_strategy.kind,
+                task_type=spec.task_type,
+                demand=None if key[1] == "OTHER" else dict(spec.resources),
+                job=key[0],
+            )
+        if front:
+            shard.queue.appendleft(spec.task_id)
+        else:
+            rec.ready_since = time.monotonic()
+            shard.queue.append(spec.task_id)
+            self._dispatch_dirty = True
+        self._ready_count += 1
+
+    def _ready_pop_valid(self, shard: _ReadyShard) -> Optional[TaskRecord]:
+        """Pop the shard's first still-PENDING task, dropping stale entries
+        (cancelled / failed / already re-dispatched) on the way."""
+        q = shard.queue
+        while q:
+            tid = q.popleft()
+            self._ready_count -= 1
+            rec = self.tasks.get(tid)
+            if rec is not None and rec.state == "PENDING":
+                return rec
+        return None
+
+    def _ready_remove(self, spec: TaskSpec) -> None:
+        """Remove one queued entry (cancellation path; rare — O(shard))."""
+        shard = self._ready_shards.get(self._shard_key(spec))
+        if shard is not None:
+            try:
+                shard.queue.remove(spec.task_id)
+                self._ready_count -= 1
+            except ValueError:
+                pass
+
+    def _observe_tick(self, dt: float) -> None:
+        h = self._tick_hist
+        h["count"] += 1
+        h["sum"] += dt
+        for i, b in enumerate(self._tick_boundaries):
+            if dt <= b:
+                h["buckets"][i] += 1
+                break
+        else:
+            h["buckets"][-1] += 1
+
+    # ---- multi-tenant job plane (arbitration records, quotas, DWRR,
+    # admission, preemption; see DESIGN_MAP "Multi-tenant job plane") -----
+
+    def _job_of(self, job_bin: bytes) -> JobState:
+        """The job's arbitration record, minted lazily: work can arrive for
+        a job the control plane never saw registered (the default driver
+        job, or a restarted head)."""
+        js = self._jobs.get(job_bin)
+        if js is None:
+            self._job_seq += 1
+            try:
+                jid_int = JobID(job_bin).int()
+            except ValueError:
+                jid_int = 0
+            js = self._jobs[job_bin] = JobState(
+                job_bin=job_bin,
+                seq=self._job_seq,
+                name="driver" if jid_int == 1 else f"job-{jid_int}",
+            )
+        return js
+
+    def _quota_blocked(self, js: JobState, demand: Dict[str, float]) -> bool:
+        """True when dispatching ``demand`` would push the job past its
+        quota (or its live object-store bytes already exceed the
+        ``object_store_bytes`` pseudo-resource cap). Enforcement lives at
+        dispatch: an over-quota job degrades to queueing, never fails."""
+        quota = js.quota
+        if not quota:
+            return False
+        cap = quota.get("object_store_bytes")
+        if cap is not None and js.object_bytes > cap:
+            return True
+        usage = js.usage
+        for k, v in demand.items():
+            cap = quota.get(k)
+            if cap is not None and usage.get(k, 0.0) + v > cap + 1e-9:
+                return True
+        return False
+
+    def _job_note_dispatch(
+        self, rec: TaskRecord, demand: Optional[Dict[str, float]], arbitrated: bool = True
+    ) -> None:
+        """One attempt of this task left the queue holding ``demand``
+        (None/{} = no resources held, e.g. actor method calls). Charges the
+        owning job's usage ledger and — for ready-queue (arbitrated) work —
+        its DWRR virtual time."""
+        js = self._job_of(rec.spec.task_id.job_id().binary())
+        rec.charged = dict(demand) if demand else {}
+        for k, v in rec.charged.items():
+            js.usage[k] = quantize(js.usage.get(k, 0.0) + v)
+        js.running += 1
+        js.dispatched += 1
+        js.last_active = time.monotonic()
+        if arbitrated:
+            js.vtime += 1.0 / max(js.weight, 1e-3)
+
+    @staticmethod
+    def _release_usage(js: JobState, charged: Dict[str, float]) -> None:
+        """Subtract a released charge from the job's usage ledger (the one
+        place the quantize-subtract/pop discipline lives — task settle and
+        actor-lifetime release must not diverge)."""
+        for k, v in charged.items():
+            left = quantize(js.usage.get(k, 0.0) - v)
+            if left <= 0:
+                js.usage.pop(k, None)
+            else:
+                js.usage[k] = left
+
+    def _job_settle(self, rec: TaskRecord) -> None:
+        """The live attempt finished / failed / was requeued: release its
+        quota charge and running count. Idempotent per dispatch cycle
+        (rec.charged is the one-shot guard) so overlapping settle paths
+        (fail + actor bookkeeping, death + requeue) can both call it."""
+        charged = rec.charged
+        if charged is None:
+            return
+        rec.charged = None
+        js = self._jobs.get(rec.spec.task_id.job_id().binary())
+        if js is None:
+            return
+        self._release_usage(js, charged)
+        js.running = max(0, js.running - 1)
+
+    def _worker_job(self, w: WorkerState) -> Optional[JobState]:
+        """The job a worker's live work belongs to (running task first,
+        else the actor it hosts)."""
+        if w.current_task is not None:
+            rec = self.tasks.get(w.current_task)
+            if rec is not None:
+                return self._jobs.get(rec.spec.task_id.job_id().binary())
+        if w.actor_id is not None:
+            return self._jobs.get(w.actor_id.binary()[-4:])
+        return None
+
+    def note_oom_kill(self, job_bin: Optional[bytes]) -> None:
+        """Memory-monitor callback (off-loop; int bump under the GIL)."""
+        if job_bin is None:
+            return
+        js = self._jobs.get(job_bin)
+        if js is not None:
+            js.oom_kills += 1
+
+    def _note_object_size(self, oid: ObjectID, size: int) -> None:
+        """Record an object's size and charge it to the owning job (the
+        oid embeds its creating task's job id) — the object_store_bytes
+        half of quota enforcement. Idempotent per oid: re-registration
+        adjusts by the delta."""
+        size = int(size)
+        old = self._object_sizes.get(oid)
+        self._object_sizes[oid] = size
+        js = self._job_of(oid.binary()[20:24])
+        js.object_bytes = max(0, js.object_bytes + size - (old or 0))
+        js.last_active = time.monotonic()
+
+    def _job_ready_counts(self) -> Dict[bytes, int]:
+        """Queued entries per job, straight off the shard index."""
+        out: Dict[bytes, int] = {}
+        for shard in self._ready_shards.values():
+            if shard.queue:
+                out[shard.job] = out.get(shard.job, 0) + len(shard.queue)
+        return out
+
+    def _admission_backlog(self) -> int:
+        """Cluster backlog for admission decisions: ready entries of
+        ADMITTED jobs. Parked (QUEUED/REJECTED) jobs'
+        own pre-submitted work must not count — otherwise a queued job
+        that submitted tasks holds the backlog above the bound forever
+        and can never be admitted (live-lock)."""
+        parked = 0
+        for jb, n in self._job_ready_counts().items():
+            js = self._jobs.get(jb)
+            if js is not None and js.admission != "ADMITTED":
+                parked += n
+        return self._ready_count - parked
+
+    def _admission_order(self) -> List[bytes]:
+        """The admission queue in service order: priority desc, then FIFO."""
+        return sorted(
+            (jb for jb in self._admission_queue if jb in self._jobs),
+            key=lambda jb: (-self._jobs[jb].priority, self._jobs[jb].seq),
+        )
+
+    def _submit_job(
+        self,
+        name: str,
+        priority: int,
+        weight: float,
+        quota: Optional[Dict[str, float]],
+        meta: Optional[dict],
+    ) -> dict:
+        """Admission control (runs on the loop): mint a job id and decide
+        ADMITTED / QUEUED / REJECTED. QUEUED jobs keep their sub-queues
+        parked until the cluster backlog drains below the bound; REJECTED
+        jobs never dispatch anything."""
+        self._job_id_counter += 1
+        job_bin = JobID.from_int(self._job_id_counter).binary()
+        self._job_seq += 1
+        js = JobState(
+            job_bin=job_bin,
+            seq=self._job_seq,
+            name=name or f"job-{self._job_id_counter}",
+            priority=int(priority),
+            weight=max(float(weight), 1e-3),
+            quota={k: float(v) for k, v in (quota or {}).items()},
+            meta=dict(meta or {}),
+            registered=True,
+        )
+        self._jobs[job_bin] = js
+        bound = int(getattr(self.config, "job_admission_backlog_max", 0) or 0)
+        backlog = self._admission_backlog()
+        over = bound and (backlog > bound or self._admission_queue)
+        if over and len(self._admission_queue) >= int(
+            getattr(self.config, "job_admission_max_queued", 64)
+        ):
+            js.admission = "REJECTED"
+            self.record_cluster_event(
+                "JOB_REJECTED",
+                f"job {js.name} rejected: admission queue full "
+                f"({len(self._admission_queue)} jobs waiting, backlog {backlog})",
+                severity="WARNING",
+                job_id=job_bin.hex(),
+                name=js.name,
+                priority=js.priority,
+            )
+        elif over:
+            js.admission = "QUEUED"
+            self._admission_queue.append(job_bin)
+            self.record_cluster_event(
+                "JOB_QUEUED",
+                f"job {js.name} queued for admission (cluster backlog "
+                f"{backlog} > bound {bound})",
+                job_id=job_bin.hex(),
+                name=js.name,
+                priority=js.priority,
+                backlog=backlog,
+            )
+        else:
+            self._record_job_admitted(js)
+        order = self._admission_order()
+        return {
+            "job_id": self._job_id_counter,
+            "job": job_bin.hex(),
+            "admission": js.admission,
+            "queue_position": (
+                order.index(job_bin) + 1 if job_bin in order else None
+            ),
+        }
+
+    def _record_job_admitted(self, js: JobState) -> None:
+        js.admission = "ADMITTED"
+        # start fair-queueing from the pack, not from zero accumulated
+        # service: a freshly-admitted job must not monopolize dispatch to
+        # "catch up" on time it never contended for
+        live = [
+            j.vtime
+            for j in self._jobs.values()
+            if j.admission == "ADMITTED" and j is not js
+        ]
+        if live:
+            js.vtime = max(js.vtime, min(live))
+        self._dispatch_dirty = True
+        self.record_cluster_event(
+            "JOB_ADMITTED",
+            f"job {js.name} admitted (priority {js.priority}, "
+            f"weight {js.weight:g})",
+            job_id=js.job_bin.hex(),
+            name=js.name,
+            priority=js.priority,
+        )
+
+    def _maybe_admit_jobs(self) -> None:
+        """Admission-queue drain (rate-limited off the loop tick): admit
+        waiting jobs — priority first, FIFO within a priority — while the
+        cluster backlog sits below the bound."""
+        if not self._admission_queue:
+            return
+        now = time.monotonic()
+        if now - self._last_admission_check < 0.25:
+            return
+        self._last_admission_check = now
+        bound = int(getattr(self.config, "job_admission_backlog_max", 0) or 0)
+        while self._admission_queue:
+            backlog = self._admission_backlog()
+            if bound and backlog > bound:
+                return
+            order = self._admission_order()
+            if not order:
+                self._admission_queue = []
+                return
+            job_bin = order[0]
+            self._admission_queue.remove(job_bin)
+            self._record_job_admitted(self._jobs[job_bin])
+
+    def _maybe_gc_jobs(self) -> None:
+        """Drop lazily-minted (never-registered) job records that have
+        been idle past a grace period with nothing live — no running
+        attempts, usage, object bytes, or ready entries. Without this,
+        every short-lived anonymous client session (random 3-byte driver
+        job id) leaves a permanent JobState and a permanent label on each
+        per-job metric series. Registered jobs persist: their quota/
+        priority config and counters are the ops surface."""
+        now = time.monotonic()
+        if now - self._last_job_gc < 30.0:
+            return
+        self._last_job_gc = now
+        ready = None
+        for job_bin, js in list(self._jobs.items()):
+            if js.registered or js.running or js.usage or js.object_bytes:
+                continue
+            if now - js.last_active < 300.0:
+                continue
+            try:
+                if JobID(job_bin).int() == 1:
+                    continue  # the head's own default driver job
+            except ValueError:
+                pass
+            if ready is None:
+                ready = self._job_ready_counts()
+            if ready.get(job_bin):
+                continue
+            del self._jobs[job_bin]
+            # the latency window (and its label cardinality) dies with the
+            # GC'd job record
+            self._job_latency.pop(job_bin.hex(), None)
+
+    def _find_starved_demand(
+        self, now: float, wait_s: float
+    ) -> Optional[Tuple[JobState, Dict[str, float]]]:
+        """The highest-priority ADMITTED job whose oldest ready task has
+        waited past ``wait_s`` for capacity the fleet COULD provide (shape
+        feasible on some node's totals) but currently doesn't — the
+        preemption trigger. Quota-blocked shards don't count (waiting on
+        your own cap is not starvation), nor do fleet-infeasible shapes
+        (killing victims can't mint a TPU)."""
+        best: Optional[Tuple[JobState, Dict[str, float]]] = None
+        best_rank = None
+        for shard in self._ready_shards.values():
+            if not shard.queue:
+                continue
+            js = self._jobs.get(shard.job)
+            if js is None or js.admission != "ADMITTED":
+                continue
+            # peek the oldest live entry without popping
+            rec = None
+            for tid in shard.queue:
+                cand = self.tasks.get(tid)
+                if cand is not None and cand.state == "PENDING":
+                    rec = cand
+                    break
+            if rec is None or not rec.ready_since:
+                continue
+            waited = now - rec.ready_since
+            if waited < wait_s:
+                continue
+            demand = shard.demand if shard.demand is not None else dict(
+                rec.spec.resources
+            )
+            if not demand:
+                continue
+            if self._quota_blocked(js, demand):
+                continue
+            if not any(
+                n.alive and n.feasible(demand) for n in self.nodes.values()
+            ):
+                continue
+            rank = (js.priority, waited)
+            if best_rank is None or rank > best_rank:
+                best_rank = rank
+                best = (js, dict(demand))
+        return best
+
+    def _victim_candidates(
+        self, below_priority: int
+    ) -> List[Tuple[Tuple, WorkerState, JobState]]:
+        """Workers holding resources for strictly-lower-priority jobs,
+        ranked worst-victim-first: lowest job priority, then highest held
+        usage, then most recently started (least sunk work). Shared by the
+        priority-preemption scan and the memory monitor's OOM policy so
+        victim selection can't diverge between the two kill paths. Workers
+        inside a protect window (mid-commit checkpoint save) are excluded
+        outright — never preempt a rank racing its shard to the barrier."""
+        out = []
+        for w in self.workers.values():
+            if w.state in ("dead", "starting"):
+                continue
+            if w.proc is None:
+                continue
+            if w.protect_count > 0:
+                continue
+            js = self._worker_job(w)
+            if js is None or js.priority >= below_priority:
+                continue
+            held = sum((w.acquired or {}).values()) + sum(
+                (w.job_charged or {}).values()
+            )
+            if w.current_task is None and w.actor_id is None:
+                continue  # plain idle pool worker: nothing to free
+            started = 0.0
+            if w.current_task is not None:
+                rec = self.tasks.get(w.current_task)
+                if rec is not None and rec.start_time:
+                    started = rec.start_time
+            out.append(((js.priority, -held, -started), w, js))
+        out.sort(key=lambda e: e[0])
+        return out
+
+    def _maybe_preempt(self) -> None:
+        """Priority preemption (1 Hz): when a high-priority job's ready
+        task has starved past ``preemption_wait_s`` while lower-priority
+        jobs hold the capacity, kill ONE victim worker per scan — the
+        gentlest intervention that makes progress; the next scan fires
+        again if the starvation persists. Victims die over the normal
+        worker-death path, so their tasks re-queue (retry budget spared —
+        ``TaskRecord.preempted``), preempted actors restart without
+        spending ``max_restarts``, and preempted trainers resume from
+        their latest committed checkpoint via the elastic-training plane."""
+        cfg = self.config
+        if not getattr(cfg, "preemption_enabled", True):
+            return
+        wait_s = float(getattr(cfg, "preemption_wait_s", 3.0))
+        if wait_s <= 0 or len(self._jobs) < 2:
+            return
+        now = time.monotonic()
+        if now - self._last_preempt_scan < max(0.5, wait_s / 4):
+            return
+        self._last_preempt_scan = now
+        # one kill in flight at a time: a SIGTERM'd victim drains its
+        # checkpoint hooks before the pipe EOF frees its resources, and
+        # re-scanning during that window would kill a second victim for
+        # the same starvation
+        for wid in list(self._preempt_inflight):
+            w = self.workers.get(wid)
+            if w is None or w.state == "dead":
+                self._preempt_inflight.pop(wid, None)
+            elif now - self._preempt_inflight[wid] > 10.0:
+                # drain wedged past the worker's own SIGTERM backstop:
+                # stop waiting on it
+                self._preempt_inflight.pop(wid, None)
+        if self._preempt_inflight:
+            return
+        starved = self._find_starved_demand(now, wait_s)
+        if starved is None:
+            return
+        js, demand = starved
+        candidates = self._victim_candidates(js.priority)
+        if not candidates:
+            return
+        # prefer a victim whose node could then actually fit the starved
+        # shape (freed + available >= demand on flat resources); fall back
+        # to the global worst victim — freeing capacity still unblocks the
+        # backlog even when no single node fits
+        victim = None
+        for _, w, vjob in candidates:
+            node = self.nodes.get(w.node_id)
+            if node is None:
+                continue
+            freed = dict(w.acquired or {})
+            for k, v in (w.job_charged or {}).items():
+                freed[k] = freed.get(k, 0.0) + v
+            if all(
+                node.available.get(k, 0.0) + freed.get(k, 0.0) >= v - 1e-9
+                for k, v in demand.items()
+            ):
+                victim = (w, vjob)
+                break
+        if victim is None:
+            victim = (candidates[0][1], candidates[0][2])
+        self._preempt_worker(victim[0], victim[1], js, wait_s)
+
+    def _preempt_worker(
+        self, w: WorkerState, vjob: JobState, for_job: JobState, waited_s: float
+    ) -> None:
+        """Kill one worker to free capacity for a starved higher-priority
+        job. SIGTERM (not exit-message) so the worker's drain hooks run —
+        a trainer rank flushes telemetry and its checkpoint hooks exactly
+        like an externally-preempted node — while the pipe EOF keeps the
+        death non-graceful (retries/restarts fire)."""
+        vjob.preemptions += 1
+        self._preempt_count += 1
+        self._preempt_inflight[w.worker_id] = time.monotonic()
+        rec = self.tasks.get(w.current_task) if w.current_task else None
+        if rec is not None and rec.state == "RUNNING":
+            rec.preempted = True
+        if w.actor_id is not None:
+            st = self.actors.get(w.actor_id)
+            if st is not None:
+                st.preempted = True
+        self.record_cluster_event(
+            "PREEMPTED",
+            f"preempted worker {w.worker_id.hex()[:12]} of job {vjob.name} "
+            f"(priority {vjob.priority}) for job {for_job.name} "
+            f"(priority {for_job.priority}, starved {waited_s:.1f}s)",
+            severity="WARNING",
+            worker_id=w.worker_id.hex(),
+            node_id=w.node_id.hex(),
+            pid=w.proc.pid if w.proc is not None else None,
+            task_id=w.current_task.hex() if w.current_task else None,
+            actor_id=w.actor_id.hex() if w.actor_id else None,
+            job_id=vjob.job_bin.hex(),
+            victim_priority=vjob.priority,
+            for_job_id=for_job.job_bin.hex(),
+            for_priority=for_job.priority,
+        )
+        self._terminate_worker(w)
+
+    def pick_oom_victim(self):
+        """Job-aware OOM victim for the memory monitor (off-loop read of
+        loop-owned dicts: candidate staleness is benign, the monitor
+        re-checks usage next period). Order: lowest job priority first,
+        then highest held usage — the same ranking as priority preemption
+        — with retriable-before-non-retriable and last-started-first as
+        tiebreaks inherited from the classic policy. Returns
+        ``(worker, job_bin, priority, provenance)`` or None; provenance is
+        the ranking's inputs, so the OOM event can show WHY this victim
+        (memory plane forensics)."""
+        ranked = []
+        for w in list(self.workers.values()):
+            if w.current_task is None or w.state == "dead":
+                continue
+            rec = self.tasks.get(w.current_task)
+            if rec is None or rec.state != "RUNNING" or w.proc is None:
+                continue
+            if w.protect_count > 0:
+                continue
+            js = self._worker_job(w)
+            prio = js.priority if js is not None else 0
+            # held = acquired + actor-lifetime charges: the same usage
+            # definition _victim_candidates ranks by, so the two kill
+            # paths agree on who the heavyweight is
+            held = sum((w.acquired or {}).values()) + sum(
+                (w.job_charged or {}).values()
+            )
+            retriable = rec.retries_left > 0
+            ranked.append(
+                (
+                    (prio, not retriable, -held, -(rec.start_time or 0)),
+                    w,
+                    js.job_bin if js is not None else None,
+                    prio,
+                    {
+                        "task_id": rec.spec.task_id.hex(),
+                        "task_name": rec.spec.name,
+                        "attempt": rec.attempt,
+                        "retriable": retriable,
+                        "held_usage": round(held, 3),
+                        "running_s": round(
+                            time.monotonic() - (rec.start_time or 0), 3
+                        )
+                        if rec.start_time
+                        else None,
+                    },
+                )
+            )
+        if not ranked:
+            return None
+        ranked.sort(key=lambda e: e[0])
+        _, w, job_bin, prio, prov = ranked[0]
+        return w, job_bin, prio, prov
+
+    def _job_row(self, js: JobState, ready: int, order: List[bytes]) -> dict:
+        try:
+            jid_int = JobID(js.job_bin).int()
+        except ValueError:
+            jid_int = 0
+        return {
+            "job_id": jid_int,
+            "job": js.job_bin.hex(),
+            "name": js.name,
+            "priority": js.priority,
+            "weight": js.weight,
+            "quota": dict(js.quota),
+            "usage": {k: v for k, v in js.usage.items() if v},
+            "object_store_bytes": js.object_bytes,
+            "running": js.running,
+            "ready": ready,
+            "dispatched_total": js.dispatched,
+            "admission": js.admission,
+            "queue_position": (
+                order.index(js.job_bin) + 1 if js.job_bin in order else None
+            ),
+            "preemptions": js.preemptions,
+            "oom_kills": js.oom_kills,
+            "vtime": round(js.vtime, 4),
+            "submitted_at": js.submitted_at,
+            "meta": dict(js.meta),
+        }
+
+    def _make_schedulable(self, rec: TaskRecord):
+        self._job_settle(rec)
+        rec.state = "PENDING"
+        # deps resolved, entering the dispatch queue: the QUEUED->DISPATCHED
+        # gap in the timeline is pure scheduler queueing delay
+        self._record_event(rec.spec, "QUEUED", ts=self._pass_now)
+        if rec.spec.task_type == TaskType.ACTOR_CREATION:
+            st = self.actors.get(rec.spec.actor_id)
+            if st is not None and "placing" not in st.stage_ts:
+                st.launch_stage = "placing"
+                st.stage_ts["placing"] = self._pass_now or time.time()
+        if rec.spec.task_type == TaskType.ACTOR_TASK:
+            self._dispatch_actor_task(rec)
+        else:
+            self._ready_push(rec)
+
+    def _schedule(self):
+        """Dispatch pending tasks to idle workers; spawn workers as needed.
+
+        Parity: ``ClusterTaskManager::ScheduleAndDispatchTasks``
+        (``cluster_task_manager.cc:136``)."""
+        # idle-worker reaping (parity: WorkerPool idle killing,
+        # worker_pool.h:83): idle beyond the timeout and above a per-node
+        # keep-warm floor -> exit. Actor workers are dedicated and never
+        # reaped here. Rate-limited: this is the hot loop.
+        timeout_s = self.config.worker_idle_timeout_s
+        now_r = time.monotonic()
+        if timeout_s > 0 and now_r - self._last_reap_scan > 1.0:
+            self._last_reap_scan = now_r
+            by_node: Dict[NodeID, List[WorkerState]] = collections.defaultdict(list)
+            for w in self.workers.values():
+                if w.state == "idle" and w.actor_id is None and w.idle_since:
+                    by_node[w.node_id].append(w)
+            keep = self.config.worker_keep_warm
+            for idle_workers in by_node.values():
+                if len(idle_workers) <= keep:
+                    continue
+                idle_workers.sort(key=lambda w: w.idle_since)
+                for w in idle_workers[: len(idle_workers) - keep]:
+                    if now_r - w.idle_since > timeout_s:
+                        try:
+                            w.conn.send(("exit",))
+                        except (OSError, EOFError):
+                            pass
+                        self._on_worker_death(w.worker_id, graceful=True)
+            # prune long-dead WorkerState entries: with reaping, worker death
+            # is steady-state and the table must not grow without bound
+            doomed = [
+                wid
+                for wid, w in self.workers.items()
+                if w.state == "dead"
+                and w.dead_since
+                and now_r - w.dead_since > 30.0
+            ]
+            for wid in doomed:
+                del self.workers[wid]
+        try:
+            self._maybe_detect_stragglers()
+        except Exception:
+            logger.exception("straggler scan failed")
+        # memory plane: 1 Hz ownership-join / leak-watchdog scan
+        try:
+            self._maybe_memory_scan()
+        except Exception:
+            logger.exception("memory watchdog scan failed")
+        # transfer plane: 1 Hz slow-link / stalled-transfer watchdog
+        try:
+            self._maybe_net_scan()
+        except Exception:
+            logger.exception("net watchdog scan failed")
+        # control plane: 1 Hz stalled-actor-launch watchdog
+        try:
+            self._maybe_launch_scan()
+        except Exception:
+            logger.exception("launch watchdog scan failed")
+        # alerting plane: 1 Hz SLO burn-rate evaluation + incident
+        # lifecycle (open/merge/close + digest assembly)
+        try:
+            self._maybe_incident_scan()
+        except Exception:
+            logger.exception("incident scan failed")
+        # multi-tenant job plane: drain the admission queue while backlog
+        # allows, then scan for starved high-priority work to preempt for
+        # (both rate-limit themselves; see DESIGN_MAP "Multi-tenant job
+        # plane")
+        try:
+            self._maybe_admit_jobs()
+        except Exception:
+            logger.exception("admission drain failed")
+        try:
+            self._maybe_preempt()
+        except Exception:
+            logger.exception("preemption scan failed")
+        try:
+            self._maybe_gc_jobs()
+        except Exception:
+            logger.exception("job-record gc failed")
+        if self._deferred_frees:
+            self._sweep_deferred_frees()
+        if self._transit_pins or self._early_release_expiry:
+            now = time.monotonic()
+            expired = []
+            while self._transit_pins and self._transit_pins[0][0] < now:
+                token = self._transit_pins.popleft()[1]
+                oid = self._transit_tokens.pop(token, None)
+                if oid is not None:
+                    # blob serialized but never deserialized anywhere within
+                    # the backstop window: collect the leak
+                    logger.warning(
+                        "transit pin backstop expired for %s", oid.hex()[:16]
+                    )
+                    expired.append(oid)
+            while (
+                self._early_release_expiry
+                and self._early_release_expiry[0][0] < now
+            ):
+                self._early_released.discard(
+                    self._early_release_expiry.popleft()[1]
+                )
+            if expired:
+                self._unpin(expired)
+        if self._placeholder_deadlines:
+            now = time.monotonic()
+            for aid in [
+                a for a, d in self._placeholder_deadlines.items() if d < now
+            ]:
+                del self._placeholder_deadlines[aid]
+                st = self.actors.get(aid)
+                if st is not None and st.creation_spec is None:
+                    st.state = "DEAD"
+                    st.death_cause = "actor creation spec never arrived"
+                    if st.name:
+                        self.gcs.named_actors.pop((st.namespace, st.name), None)
+                    self._drain_actor_queue(st)
+        for pg in self.placement_groups.values():
+            if pg.state == "PENDING":
+                self._create_pg(pg)
+        if not self._ready_count:
+            return
+        # event-driven dispatch: only sweep when capacity or the queue
+        # changed (dirty), with a periodic safety sweep bounding any missed
+        # wake-up. Each sweep is O(shards x nodes + dispatched) — flat in
+        # queue depth — so the old per-pass fail caps and rotation hacks
+        # are gone (they fought the flat deque's O(pending) deferral scans).
+        now_d = time.monotonic()
+        periodic = now_d - self._last_full_dispatch >= 0.5
+        if not self._dispatch_dirty and not periodic:
+            return
+        self._dispatch_dirty = False
+        if periodic:
+            self._last_full_dispatch = now_d
+        t0 = time.perf_counter()
+        self._dispatch_pass(periodic)
+        self._observe_tick(time.perf_counter() - t0)
+
+    def _dispatch_pass(self, periodic: bool) -> None:
+        """One placement sweep over the per-job sharded ready queue.
+
+        Jobs are served by weighted-fair queueing: ascending virtual time
+        (``vtime`` = dispatches / weight), a ``fair_share_quantum x
+        weight`` dispatch budget per visit. Serving the least-served job
+        first (rather than rotating) keeps weights honored even when
+        capacity frees one slot per pass — the common steady state — so
+        one noisy tenant can saturate at most its share, never the tick.
+
+        Within a job the shard discipline is unchanged: shape shards
+        (DEFAULT/SPREAD) stop at their FIRST placement failure (same
+        demand + same fleet means every deeper entry fails identically,
+        and an infeasible shape costs zero probes); the job's OTHER shard
+        (node affinity, PG bundles) keeps per-task placement under the
+        bounded fail cap + rotation. Quota-blocked shapes and
+        admission-QUEUED jobs are skipped without popping an entry."""
+        self._pick_cache = {}
+        self._pass_now = time.time()
+        try:
+            by_job: Dict[bytes, List[_ReadyShard]] = {}
+            for key in list(self._ready_shards.keys()):
+                shard = self._ready_shards[key]
+                if not shard.queue:
+                    # empty shards are GC'd here (not on pop) so one-shot
+                    # shapes don't accumulate dict entries forever
+                    del self._ready_shards[key]
+                    continue
+                by_job.setdefault(shard.job, []).append(shard)
+            if not by_job:
+                return
+            jobs: List[Tuple[JobState, List[_ReadyShard]]] = []
+            for job_bin, shards in by_job.items():
+                js = self._job_of(job_bin)
+                if js.admission != "ADMITTED":
+                    continue  # parked at admission control
+                jobs.append((js, shards))
+            if not jobs:
+                # every live shard belongs to a parked (QUEUED/REJECTED)
+                # job: nothing to arbitrate this pass
+                return
+            if len(jobs) == 1:
+                # single-tenant fast path: no arbitration to do — drain
+                # with an unbounded budget exactly like the pre-DWRR core
+                js, shards = jobs[0]
+                self._drain_job_shards(js, shards, periodic, None)
+                return
+            quantum = max(
+                1.0, float(getattr(self.config, "fair_share_quantum", 8.0))
+            )
+            # a job re-entering contention with a stale (low) vtime may
+            # catch up by at most two quanta of lag — it was underserved,
+            # but an unbounded burst would starve everyone else for as
+            # long as it had been idle
+            floor = max(js.vtime for js, _ in jobs) - 2.0 * quantum
+            for js, _ in jobs:
+                if js.vtime < floor:
+                    js.vtime = floor
+            active = jobs
+            while active:
+                # strict priority first (a freed slot must reach the
+                # high-priority job preemption freed it FOR, not race back
+                # to the victim), then ascending vtime (service/weight)
+                # within a priority level: every slot goes to the
+                # least-served equal-priority job per its weight — this,
+                # not per-pass rotation, is what keeps weights honored
+                # when capacity frees one slot at a time
+                active.sort(
+                    key=lambda e: (-e[0].priority, e[0].vtime, e[0].seq)
+                )
+                js, shards = active[0]
+                budget = max(1, int(round(quantum * js.weight)))
+                got = self._drain_job_shards(js, shards, periodic, budget)
+                if got < budget or not any(s.queue for s in shards):
+                    # blocked on placement/quota, or drained: out of this
+                    # pass (a full quantum with work left re-sorts and may
+                    # win again — its vtime advanced by got/weight)
+                    active.pop(0)
+        finally:
+            self._pick_cache = None
+            self._pass_now = None
+
+    def _drain_job_shards(
+        self,
+        js: JobState,
+        shards: List[_ReadyShard],
+        periodic: bool,
+        budget: Optional[int],
+    ) -> int:
+        """Dispatch up to ``budget`` tasks (None = unbounded) from one
+        job's shards; returns the dispatched count."""
+        dispatched = 0
+        for shard in shards:
+            left = None if budget is None else budget - dispatched
+            if left is not None and left <= 0:
+                break
+            if not shard.queue:
+                continue
+            if shard.demand is None:
+                dispatched += self._drain_other_shard(shard, periodic, js, left)
+            else:
+                dispatched += self._drain_shape_shard(shard, js, left)
+        return dispatched
+
+    def _drain_shape_shard(
+        self, shard: _ReadyShard, js: JobState, budget: Optional[int]
+    ) -> int:
+        demand = shard.demand
+        cache = self._pick_cache
+        feas_key = ("__feas__",) + tuple(sorted(demand.items()))
+        feasible = cache.get(feas_key) if cache is not None else None
+        if feasible is None:
+            feasible = any(
+                n.alive and n.feasible(demand) for n in self.nodes.values()
+            )
+            if cache is not None:
+                cache[feas_key] = feasible
+        if not feasible:
+            # no node of this shape exists at ALL: zero placement probes;
+            # the shard waits for the fleet to change (autoscaler input)
+            return 0
+        dispatched = 0
+        while shard.queue and (budget is None or dispatched < budget):
+            if self._quota_blocked(js, demand):
+                # same demand for the whole shard: once the job's quota is
+                # saturated every deeper entry is blocked identically —
+                # the shard parks until a completion releases usage
+                return dispatched
+            rec = self._ready_pop_valid(shard)
+            if rec is None:
+                return dispatched
+            placed = False
+            try:
+                placed = self._try_dispatch(rec)
+            finally:
+                if not placed:
+                    # a dispatch exception must not orphan the popped task
+                    self._ready_push(rec, front=True)
+            if not placed:
+                # same demand, same fleet: every deeper entry fails too
+                return dispatched
+            dispatched += 1
+        return dispatched
+
+    def _drain_other_shard(
+        self,
+        shard: _ReadyShard,
+        periodic: bool,
+        js: JobState,
+        budget: Optional[int],
+    ) -> int:
+        """Per-task placement work (node affinity, PG bundles): bounded scan
+        with rotation — the flat-queue discipline, confined to this shard.
+        Quota-blocked entries count as placement failures (deferred, not
+        popped for good), so a quota-saturated job spins the fail cap, not
+        the whole queue."""
+        q = shard.queue
+        fail_cap = 256 if periodic else 32
+        fails = 0
+        scanned = 0
+        dispatched = 0
+        max_scan = len(q)
+        deferred: List[TaskID] = []
+        while (
+            q
+            and scanned < max_scan
+            and fails < fail_cap
+            and (budget is None or dispatched < budget)
+        ):
+            scanned += 1
+            rec = self._ready_pop_valid(shard)
+            if rec is None:
+                break
+            placed = False
+            try:
+                if not self._quota_blocked(js, rec.spec.resources):
+                    placed = self._try_dispatch(rec)
+            finally:
+                if not placed:
+                    deferred.append(rec.spec.task_id)
+            if not placed:
+                fails += 1
+            else:
+                fails = 0
+                dispatched += 1
+        if deferred:
+            q.extendleft(reversed(deferred))
+            self._ready_count += len(deferred)
+        if periodic and fails >= fail_cap and len(q) > fail_cap:
+            # start the next periodic scan deeper in: a straggler whose
+            # node-affinity target frees later is found within
+            # O(len/fail_cap) periods instead of never
+            q.rotate(-fail_cap)
+        return dispatched
+
+    def _pick_node(self, spec: TaskSpec) -> Optional[NodeState]:
+        """Hybrid policy (``hybrid_scheduling_policy.cc:99``)."""
+        demand = spec.resources
+        strat = spec.scheduling_strategy
+        cache = self._pick_cache
+        if cache is not None:
+            alive = cache.get("__alive__")
+            if alive is None:
+                alive = cache["__alive__"] = [
+                    n for n in self.nodes.values() if n.alive
+                ]
+        else:
+            alive = [n for n in self.nodes.values() if n.alive]
+        if strat.kind == "NODE_AFFINITY":
+            for n in alive:
+                if n.node_id.hex() == strat.node_id:
+                    # n.alive re-checked: the cached pass-local alive list
+                    # can contain a node that died mid-pass
+                    if n.alive and n.can_run(demand):
+                        return n
+                    return None if not strat.soft else self._pick_node_default(demand, alive, spec)
+            return None if not strat.soft else self._pick_node_default(demand, alive, spec)
+        if strat.kind == "SPREAD":
+            runnable = [n for n in alive if n.alive and n.can_run(demand)]
+            if not runnable:
+                return None
+            return min(runnable, key=lambda n: n.utilization())
+        return self._pick_node_default(demand, alive, spec)
+
+    def _locality_args(self, spec: TaskSpec) -> Optional[List[Tuple[int, Set[NodeID]]]]:
+        """[(size_bytes, holder node-id set)] for this task's stored args at
+        or above the locality threshold; None when locality dispatch is off
+        or nothing qualifies. Sizes come from the head's put-time records;
+        a stored arg of unknown size is weighted at the object-store inline
+        threshold (anything in the store is at least that big)."""
+        if not spec.args and not spec.kwargs:
+            return None  # arg-less fast path: zero allocations per dispatch
+        if not getattr(self.config, "locality_aware_dispatch", True):
+            return None
+        out = None
+        floor = getattr(
+            self.config, "locality_min_arg_bytes", 100 * 1024
+        )
+        args = (
+            spec.args
+            if not spec.kwargs
+            else itertools.chain(spec.args, spec.kwargs.values())
+        )
+        for a in args:
+            if not a.is_ref or a.object_id is None:
+                continue
+            oid = a.object_id
+            locs = self._object_locations.get(oid)
+            if not locs:
+                continue
+            size = self._object_sizes.get(oid)
+            if size is None:
+                entry = self.memory_store.get_entry(oid)
+                if entry is None or entry[0] != "stored":
+                    continue
+                size = self.config.max_direct_call_object_size
+            if size < floor:
+                continue
+            if out is None:
+                out = []
+            out.append((size, locs))
+        return out
+
+    def _pick_node_local_args(
+        self, big, demand, alive
+    ) -> Optional[NodeState]:
+        """Runnable candidate holding the most resident argument bytes
+        (ties broken toward lower utilization); None when no runnable node
+        holds any of them."""
+        best = None
+        best_score = (0.0,)
+        for n in alive:
+            if not (n.alive and n.can_run(demand)):
+                continue
+            loc = self._loc_node(n.node_id)
+            resident = 0
+            for size, locs in big:
+                if loc in locs:
+                    resident += size
+            if resident <= 0:
+                continue
+            score = (resident, -n.utilization())
+            if best is None or score > best_score:
+                best, best_score = n, score
+        return best
+
+    def _pick_node_default(self, demand, alive, spec=None) -> Optional[NodeState]:
+        # locality-aware dispatch (parity role: the reference's
+        # locality-aware leasing in cluster_task_manager / the push-pull
+        # object directory, SURVEY L4): a task with large resident args
+        # lands where its inputs live instead of pulling them over the
+        # socket plane. Checked BEFORE the local-node shortcut — a head
+        # that merely has free CPU must not drag remote gigabytes home.
+        if spec is not None:
+            big = self._locality_args(spec)
+            if big:
+                n = self._pick_node_local_args(big, demand, alive)
+                if n is not None:
+                    self._locality_hits += 1
+                    return n
+                self._locality_misses += 1
+        local = self._node.head_node_id
+        local_node = self.nodes.get(local)
+        if (
+            local_node is not None
+            and local_node.alive
+            and local_node.can_run(demand)
+            and local_node.utilization() < 0.9
+        ):
+            return local_node
+        # per-dispatch-pass candidate cache: a deep homogeneous queue
+        # otherwise pays O(nodes log nodes) *per task* re-sorting an
+        # unchanged fleet (the 50-node submit-rate collapse); within one
+        # pass capacity only shrinks, so stale entries just pop off.
+        # Selection stays top-k random (not first-fit) so concurrent tasks
+        # spread instead of bin-packing one node.
+        cache = self._pick_cache
+        key = ("__cand__",) + tuple(sorted(demand.items()))
+        cand = cache.get(key) if cache is not None else None
+        if cand is None:
+            cand = sorted(
+                (n for n in alive if n.alive and n.can_run(demand)),
+                key=lambda n: n.utilization(),
+            )
+            if cache is not None:
+                cache[key] = cand
+        while cand:
+            k = max(1, int(len(cand) * self.config.scheduler_top_k_fraction))
+            i = random.randrange(min(k, len(cand)))
+            n = cand[i]
+            # re-validate at use: the node may have died or filled up
+            # since the list was built earlier in this pass
+            if n.alive and n.can_run(demand):
+                return n
+            cand.pop(i)
+        return None
+
+    def _try_dispatch(self, rec: TaskRecord) -> bool:
+        spec = rec.spec
+        strat = spec.scheduling_strategy
+        # placement-group capacity comes from the bundle reservation, not the node
+        if strat.kind == "PLACEMENT_GROUP" and strat.placement_group_id is not None:
+            return self._try_dispatch_pg(rec)
+        node = self._pick_node(spec)
+        if node is None:
+            return False
+        wid = self._acquire_worker(node, spec)
+        if wid is None:
+            if spec.task_type == TaskType.ACTOR_CREATION:
+                # launch lifecycle: placement is decided, the creation now
+                # waits on a worker spawn — the placing->spawning boundary
+                # splits queue_wait into placement_ms / worker_spawn_ms
+                st = self.actors.get(spec.actor_id)
+                if st is not None and "spawning" not in st.stage_ts:
+                    st.launch_stage = "spawning"
+                    st.stage_ts["spawning"] = self._pass_now or time.time()
+            return False
+        w = self.workers[wid]
+        # the node's per-device ledger is authoritative
+        accel = node.instances().allocate(spec.resources)
+        if accel is None:
+            # flat ledger admits it, but devices are fragmented (e.g. a
+            # 0.8 demand across two 0.4-free devices): cannot place now —
+            # hand the worker back and retry after a release
+            w.state = "idle"
+            w.idle_since = time.monotonic()
+            self._idle_by_node[node.node_id].append(wid)
+            return False
+        node.acquire(spec.resources)
+        w.acquired = dict(spec.resources)
+        w.acquired_node = node.node_id
+        # indexed resources (TPU/GPU): the worker gets TPU_VISIBLE_CHIPS /
+        # CUDA_VISIBLE_DEVICES scoped to the task
+        w.accel_alloc = accel
+        w.accel_node = node.node_id if accel else None
+        self._send_exec(wid, rec)
+        return True
+
+    def _try_dispatch_pg(self, rec: TaskRecord) -> bool:
+        spec = rec.spec
+        pg = self.placement_groups.get(spec.scheduling_strategy.placement_group_id)
+        if pg is None or pg.state != "CREATED":
+            return False
+        idx = spec.scheduling_strategy.bundle_index
+        candidates = range(len(pg.bundles)) if idx == -1 else [idx]
+        for i in candidates:
+            avail = pg.bundle_available[i]
+            if all(avail.get(k, 0.0) >= v - 1e-9 for k, v in spec.resources.items()):
+                node = self.nodes[pg.bundle_nodes[i]]
+                wid = self._acquire_worker(node, spec)
+                if wid is None:
+                    return False
+                w = self.workers[wid]
+                # PG reservations debit the flat ledger only; device
+                # INDICES resolve at dispatch from the node ledger so PG and
+                # non-PG tasks can't share a device
+                accel = node.instances().allocate(spec.resources)
+                if accel is None:
+                    # fragmented on THIS bundle's node: hand the worker
+                    # back and try the remaining candidate bundles
+                    w.state = "idle"
+                    w.idle_since = time.monotonic()
+                    self._idle_by_node[node.node_id].append(wid)
+                    continue
+                for k, v in spec.resources.items():
+                    avail[k] = avail.get(k, 0.0) - v
+                w.acquired = dict(spec.resources)
+                w.acquired_node = None
+                w.accel_alloc = accel
+                w.accel_node = node.node_id if accel else None
+                w.pg_reservation = (pg.pg_id, i)
+                self._send_exec(wid, rec)
+                return True
+        return False
+
+    def _acquire_worker(self, node: NodeState, spec: TaskSpec) -> Optional[WorkerID]:
+        idle = self._idle_by_node[node.node_id]
+        while idle:
+            wid = idle.popleft()
+            w = self.workers.get(wid)
+            if w is not None and w.state == "idle":
+                w.state = "busy"
+                return wid
+        # spawn new workers for this node, throttled by DEMAND: a fleet of
+        # pending actor creations prestarts wide so child boots overlap
+        # (parity: WorkerPool prestart sized by queued leases,
+        # worker_pool.h:83); the floor of 4 keeps small bursts cheap
+        cap = max(4, min(32, self._ready_count))
+        if self._starting_count[node.node_id] < cap:
+            self._starting_count[node.node_id] += 1
+            new_wid = self._node.spawn_worker(node.node_id)
+            if new_wid is not None:
+                self._spawn_total += 1
+                self._spawn_started[new_wid] = (node.node_id, time.monotonic())
+        return None
+
+    def _send_exec(self, wid: WorkerID, rec: TaskRecord):
+        w = self.workers[wid]
+        rec.state = "RUNNING"
+        rec.worker_id = wid
+        rec.start_time = time.monotonic()
+        rec.attempt += 1
+        self._job_note_dispatch(rec, rec.spec.resources)
+        self._running_watch.add(rec.spec.task_id)
+        w.current_task = rec.spec.task_id
+        launch_stages = None
+        if rec.spec.task_type == TaskType.ACTOR_CREATION:
+            actor = self.actors[rec.spec.actor_id]
+            actor.worker_id = wid
+            w.actor_id = rec.spec.actor_id
+            launch_stages = self._note_creation_dispatch(actor, rec, w.node_id)
+        self._record_event(rec.spec, "DISPATCHED", stages=launch_stages)
+        self._record_event(rec.spec, "RUNNING")
+        try:
+            if w.accel_alloc:
+                w.conn.send(("exec", rec.spec, w.accel_alloc))
+            else:
+                w.conn.send(("exec", rec.spec))
+        except (OSError, EOFError):
+            self._on_worker_death(wid)
+
+    # ---- control-plane observability helpers (launch lifecycle +
+    # decision flight recorder; see DESIGN_MAP "Control-plane
+    # observability") ----------------------------------------------------
+
+    def _launch_obs_on(self) -> bool:
+        return bool(
+            getattr(self.config, "telemetry_enabled", True)
+            and getattr(self.config, "launch_obs_enabled", True)
+        )
+
+    def _note_creation_dispatch(
+        self, actor: ActorState, rec: TaskRecord, node_id: NodeID
+    ) -> Optional[dict]:
+        """Stamp the placing/spawning -> executing transition and return the
+        head-side queue-wait split (placement_ms / worker_spawn_ms) to ride
+        the creation's DISPATCHED event — build_trace merges event stages
+        from any source, so the split lands in the span tree without a new
+        message."""
+        if not self._launch_obs_on():
+            actor.launch_stage = "executing"
+            return None
+        now = self._pass_now or time.time()
+        ts = actor.stage_ts
+        actor.launch_stage = "executing"
+        ts["executing"] = now
+        queued = ts.get("placing", ts.get("submitted", now))
+        spawn_since = ts.get("spawning")
+        stages = {}
+        if spawn_since is not None:
+            stages["placement_ms"] = max(0.0, (spawn_since - queued) * 1000.0)
+            stages["worker_spawn_ms"] = max(0.0, (now - spawn_since) * 1000.0)
+        else:
+            # never waited on a spawn: an idle worker served the creation
+            stages["placement_ms"] = max(0.0, (now - queued) * 1000.0)
+            stages["worker_spawn_ms"] = 0.0
+        self._record_decision(
+            "placement",
+            actor=actor.actor_id.hex(),
+            name=rec.spec.name,
+            node=node_id.hex()[:12],
+            reason="spawned_worker" if spawn_since is not None else "idle_worker",
+            nodes_alive=sum(1 for n in self.nodes.values() if n.alive),
+            queue_wait_ms=round((now - queued) * 1000.0, 3),
+            trace=actor.launch_trace,
+        )
+        return {k: round(v, 3) for k, v in stages.items()}
+
+    def _record_decision(self, kind: str, **fields) -> None:
+        """Append one record to the decision flight recorder (bounded ring;
+        callable from any thread — autoscaler decisions arrive via rpc)."""
+        with self._decision_lock:
+            self._decision_seq += 1
+            self._decision_counts[kind] = self._decision_counts.get(kind, 0) + 1
+            rec = {"seq": self._decision_seq, "t": time.time(), "kind": kind}
+            rec.update({k: v for k, v in fields.items() if v is not None})
+            self._decisions.append(rec)
+
+    def _finish_creation_profile(self, actor: ActorState, ev_stages: Optional[dict]) -> None:
+        """Fold the settled creation's stage stamps + worker-side stage dict
+        into the per-actor decomposition, the launch-profile ring, and the
+        per-stage aggregates."""
+        if not self._launch_obs_on():
+            return
+        now = self._pass_now or time.time()
+        ts = actor.stage_ts
+        actor.launch_stage = "ready"
+        ts["ready"] = now
+        sub = ts.get("submitted", now)
+        queued = ts.get("placing", sub)
+        spawn_since = ts.get("spawning")
+        disp = ts.get("executing", now)
+        ms = actor.lifecycle_ms
+        ms["submit_ms"] = max(0.0, (queued - sub) * 1000.0)
+        if spawn_since is not None:
+            ms["placement_ms"] = max(0.0, (spawn_since - queued) * 1000.0)
+            ms["worker_spawn_ms"] = max(0.0, (disp - spawn_since) * 1000.0)
+        else:
+            ms["placement_ms"] = max(0.0, (disp - queued) * 1000.0)
+            ms["worker_spawn_ms"] = 0.0
+        ms["execute_ms"] = max(0.0, (now - disp) * 1000.0)
+        # worker-side creation stages ride the FINISHED event's stage dict
+        # (runtime_env_ms, actor_class_load_ms, init stages); they decompose
+        # execute_ms, so they are kept alongside, never double-summed
+        for k in ("runtime_env_ms", "actor_class_load_ms"):
+            if ev_stages and k in ev_stages:
+                ms[k] = float(ev_stages[k])
+        ms["total_ms"] = max(0.0, (now - sub) * 1000.0)
+        for k, v in ms.items():
+            if k != "total_ms":
+                self._launch_stage_seconds[k] = (
+                    self._launch_stage_seconds.get(k, 0.0) + v / 1000.0
+                )
+        self._launch_done_total += 1
+        spec = actor.creation_spec
+        self._launch_recent.append(
+            {
+                "actor": actor.actor_id.hex(),
+                "name": spec.name if spec else None,
+                "node": actor.worker_id and self.workers.get(actor.worker_id)
+                and self.workers[actor.worker_id].node_id.hex()[:12],
+                "trace": actor.launch_trace,
+                "t": now,
+                "stages": {k: round(v, 3) for k, v in ms.items()},
+            }
+        )
+        # the watchdog's per-stage dedup entries are dead now
+        ahex = actor.actor_id.hex()
+        self._launch_dedup.prune(keep=lambda kf: kf[0] != ahex)
+
+    _CREATION_WORKER_STAGES = ("runtime_env_ms", "actor_class_load_ms")
+
+    def _merge_creation_worker_stages(self, ev: dict) -> None:
+        """Worker-side creation stages lag the head's settle by up to one
+        telemetry flush: merge them into the actor's decomposition, the
+        launch-profile ring entry, and the per-stage aggregates."""
+        if not self._launch_obs_on():
+            return
+        ahex = ev.get("actor_id")
+        if not ahex:
+            return
+        picked = {
+            k: float(v)
+            for k, v in ev["stages"].items()
+            if k in self._CREATION_WORKER_STAGES
+        }
+        if not picked:
+            return
+        try:
+            actor = self.actors.get(ActorID.from_hex(ahex))
+        except (ValueError, TypeError):
+            actor = None
+        if actor is not None:
+            for k, v in picked.items():
+                if k not in actor.lifecycle_ms:
+                    self._launch_stage_seconds[k] = (
+                        self._launch_stage_seconds.get(k, 0.0) + v / 1000.0
+                    )
+                actor.lifecycle_ms[k] = v
+        for entry in reversed(self._launch_recent):
+            if entry["actor"] == ahex:
+                entry["stages"].update(
+                    {k: round(v, 3) for k, v in picked.items()}
+                )
+                break
+
+    def _note_spawn_failure(self, w: WorkerState, wid: WorkerID, pid) -> None:
+        """A head-spawned worker died before its ready ack: emit the typed
+        WORKER_SPAWN_FAILED event with the provenance at hand (exit code,
+        persisted stderr tail) and fail pending actor creations fast once
+        the node's consecutive-failure streak crosses the threshold."""
+        spawn = self._spawn_started.pop(wid, None)
+        self._spawn_failed_total += 1
+        self._spawn_fail_streak[w.node_id] += 1
+        streak = self._spawn_fail_streak[w.node_id]
+        exitcode = getattr(w.proc, "exitcode", None)
+        tail = self._worker_stderr_tail(wid, pid)
+        self.record_cluster_event(
+            "WORKER_SPAWN_FAILED",
+            f"worker {wid.hex()[:12]} died before ready on node "
+            f"{w.node_id.hex()[:12]}"
+            + (f" (exit code {exitcode})" if exitcode is not None else "")
+            + (f": {tail.splitlines()[-1]}" if tail else ""),
+            severity="ERROR",
+            worker_id=wid.hex(),
+            node_id=w.node_id.hex(),
+            pid=pid,
+            exitcode=exitcode,
+            stderr_tail=tail or None,
+            spawn_elapsed_s=(
+                round(time.monotonic() - spawn[1], 3) if spawn else None
+            ),
+            consecutive_failures=streak,
+        )
+        threshold = int(
+            getattr(self.config, "spawn_fail_fast_threshold", 3) or 0
+        )
+        if threshold and streak >= threshold:
+            self._fail_fast_pending_creations(w.node_id, exitcode, tail)
+
+    def _worker_stderr_tail(self, wid: WorkerID, pid, max_bytes: int = 2048) -> str:
+        """Tail of the dead worker's persisted stderr, if the log plane
+        wrote one (worker-<wid8>-<pid>.err under <session>/logs)."""
+        if pid is None or not getattr(self.config, "persist_worker_logs", True):
+            return ""
+        path = os.path.join(
+            self._node.session_dir, "logs", f"worker-{wid.hex()[:8]}-{pid}.err"
+        )
+        try:
+            with open(path, "rb") as fh:
+                fh.seek(0, os.SEEK_END)
+                size = fh.tell()
+                fh.seek(max(0, size - max_bytes))
+                return fh.read().decode("utf-8", errors="replace").strip()
+        except OSError:
+            return ""
+
+    def _fail_fast_pending_creations(self, node_id: NodeID, exitcode, tail) -> None:
+        """Consecutive spawn failures mean creations parked in the spawning
+        stage would wait out the full startup timeout for workers that keep
+        dying — fail them now with the spawn provenance chained."""
+        provenance = (
+            f"{self._spawn_fail_streak[node_id]} consecutive worker spawn "
+            f"failures on node {node_id.hex()[:12]}"
+            + (f" (last exit code {exitcode})" if exitcode is not None else "")
+            + (f"; stderr tail: {tail}" if tail else "")
+        )
+        for actor in list(self.actors.values()):
+            if actor.state != "PENDING" or actor.launch_stage != "spawning":
+                continue
+            spec = actor.creation_spec
+            if spec is None:
+                continue
+            rec = self.tasks.get(spec.task_id)
+            if rec is None or rec.state not in ("PENDING", "SCHEDULED"):
+                continue
+            actor.state = "DEAD"
+            actor.launch_stage = "dead"
+            actor.stage_ts["dead"] = time.time()
+            actor.death_cause = f"worker spawn failed: {provenance}"
+            self._ready_remove(spec)
+            self._fail_task(
+                rec, exc.WorkerCrashedError(f"actor creation failed: {provenance}")
+            )
+            self._drain_actor_queue(actor)
+
+    def _launch_profile_summary(self, limit: int = 50) -> dict:
+        """Aggregate the launch-profile ring: per-stage count/mean/p50/p95
+        across recently settled creations plus the most recent rows — the
+        `ray_tpu_torch actors launch-profile` feed (ROADMAP item 2's 'where does
+        the 75ms/actor go' baseline)."""
+        recent = list(self._launch_recent)
+        by_stage: Dict[str, List[float]] = {}
+        for entry in recent:
+            for k, v in entry["stages"].items():
+                if k != "total_ms":
+                    by_stage.setdefault(k, []).append(v)
+        totals = [e["stages"].get("total_ms", 0.0) for e in recent]
+        def _stats(vals: List[float]) -> dict:
+            ordered = sorted(vals)
+            n = len(ordered)
+            return {
+                "count": n,
+                "mean_ms": round(sum(ordered) / n, 3) if n else 0.0,
+                "p50_ms": round(ordered[n // 2], 3) if n else 0.0,
+                "p95_ms": round(ordered[min(n - 1, int(0.95 * n))], 3) if n else 0.0,
+                "max_ms": round(ordered[-1], 3) if n else 0.0,
+            }
+        return {
+            "launched_total": self._launch_done_total,
+            "window": len(recent),
+            "total": _stats(totals),
+            "stages": {k: _stats(v) for k, v in sorted(by_stage.items())},
+            "stage_seconds_total": {
+                k: round(v, 3)
+                for k, v in sorted(self._launch_stage_seconds.items())
+            },
+            "worker_boot_stage_seconds": {
+                k: round(v, 3)
+                for k, v in sorted(self._worker_boot_stage_seconds.items())
+            },
+            "recent": recent[-max(0, int(limit)):],
+        }
+
+    def _dispatch_actor_task(self, rec: TaskRecord):
+        actor = self.actors[rec.spec.actor_id]
+        if actor.state == "ALIVE" and actor.worker_id is not None:
+            w = self.workers.get(actor.worker_id)
+            if w is not None and w.state != "dead":
+                rec.state = "RUNNING"
+                rec.worker_id = actor.worker_id
+                rec.start_time = time.monotonic()
+                rec.attempt += 1
+                # method calls hold no extra resources (the actor's
+                # lifetime charge covers them) and bypass the ready-queue
+                # arbitration: count running, skip vtime
+                self._job_note_dispatch(rec, None, arbitrated=False)
+                self._running_watch.add(rec.spec.task_id)
+                self._record_event(rec.spec, "DISPATCHED")
+                self._record_event(rec.spec, "RUNNING")
+                try:
+                    w.conn.send(("exec", rec.spec))
+                except (OSError, EOFError):
+                    self._on_worker_death(actor.worker_id)
+                return
+        if actor.state == "DEAD":
+            self._fail_task(
+                rec,
+                exc.ActorDiedError(
+                    actor.actor_id,
+                    actor.death_cause or "actor died",
+                    task_started=False,
+                ),
+            )
+        else:
+            actor.pending_calls.append(rec.spec)
+
+    # ---- completion ------------------------------------------------------
+
+    def _retire_worker(self, wid: WorkerID) -> None:
+        """Exit a pooled worker instead of returning it to the pool. CUDA
+        reads ``CUDA_VISIBLE_DEVICES`` once, when it initialises, so a worker
+        that held a GPU or initialised CUDA cannot take another task's device
+        assignment (parity: Ray's ``max_calls=1`` for GPU tasks); the next
+        task gets a fresh fork, whose CUDA is untouched."""
+        w = self.workers[wid]
+        w.current_task = None
+        self._release_resources(w)
+        try:
+            w.conn.send(("exit",))
+        except (OSError, EOFError):
+            pass
+        self._on_worker_death(wid, graceful=True)
+
+    def _on_task_done(
+        self,
+        wid: WorkerID,
+        task_id: TaskID,
+        results: List[Tuple],
+        cuda_initialized: bool = False,
+    ):
+        w = self.workers[wid]
+        retire = cuda_initialized or "GPU" in w.accel_alloc
+        rec = self.tasks.get(task_id)
+        spec = rec.spec if rec else None
+        # retry_exceptions: re-execute on matching application exception
+        # instead of committing the error (ref: TaskManager retries,
+        # src/ray/core_worker/task_manager.h:208)
+        if (
+            rec is not None
+            and spec is not None
+            and spec.task_type == TaskType.NORMAL_TASK
+            and not spec.is_streaming  # earlier stream items are committed
+            and spec.retry_exceptions
+            and rec.retries_left > 0
+            and results
+            and results[0][0] == "error"
+            and self._retryable_app_error(results[0], spec.retry_exceptions)
+        ):
+            rec.retries_left -= 1
+            self._record_event(spec, "RETRY")
+            self._record_task_retry(rec, "application exception matched retry_exceptions")
+            if w.state in ("busy", "blocked"):
+                if retire:
+                    self._retire_worker(wid)
+                else:
+                    self._release_resources(w)
+                    w.current_task = None
+                    w.state = "idle"
+                    w.idle_since = time.monotonic()
+                    self._idle_by_node[w.node_id].append(wid)
+            self._make_schedulable(rec)
+            return
+        if rec is not None:
+            rec.state = "FINISHED"
+            rec.end_time = time.monotonic()
+            self._job_settle(rec)
+            self._record_event(rec.spec, "FINISHED")
+            if results and results[0][0] == "error":
+                self._note_task_error(rec, results[0], w)
+            else:
+                self._note_task_runtime(rec)
+            if spec is not None and spec.task_type == TaskType.ACTOR_TASK:
+                self._actor_task_settled(spec.actor_id)
+        # commit each return
+        if spec is not None:
+            for i, entry in enumerate(results):
+                oid = ObjectID.for_return(spec.task_id, i)
+                if entry[0] == "stored":
+                    self._object_locations[oid].add(self._loc_node(w.node_id))
+                self._commit_result(oid, entry)
+            # drop the submitted-task arg pins (actor-creation args stay pinned:
+            # a restart re-resolves them)
+            if spec.task_type != TaskType.ACTOR_CREATION:
+                self._unpin(spec.arg_ref_ids())
+        # actor lifecycle transitions
+        creation_failed = False
+        if spec is not None and spec.task_type == TaskType.ACTOR_CREATION:
+            actor = self.actors[spec.actor_id]
+            if results and results[0][0] == "error":
+                creation_failed = True
+                actor.state = "DEAD"
+                actor.death_cause = "actor __init__ failed"
+                actor.launch_stage = "dead"
+                actor.stage_ts["dead"] = self._pass_now or time.time()
+                # a runtime_env apply failure is a SPAWN failure, not an
+                # application bug: surface it as the typed event with the
+                # exception text chained (the error result itself already
+                # fails the creation fast)
+                err_text = ""
+                try:
+                    err_text = str(pickle.loads(results[0][1]))
+                except Exception:
+                    pass
+                if "runtime_env" in err_text or "runtime env" in err_text:
+                    actor.death_cause = "runtime_env apply failed"
+                    self.record_cluster_event(
+                        "WORKER_SPAWN_FAILED",
+                        f"runtime_env apply failed for actor "
+                        f"{spec.name or spec.actor_id.hex()[:12]}: "
+                        f"{err_text[:400]}",
+                        severity="ERROR",
+                        worker_id=wid.hex(),
+                        node_id=w.node_id.hex(),
+                        actor_id=spec.actor_id.hex(),
+                        stderr_tail=err_text[:2048],
+                        trace_id=actor.launch_trace,
+                    )
+                self._drain_actor_queue(actor)
+            else:
+                actor.state = "ALIVE"
+                try:
+                    self._finish_creation_profile(actor, None)
+                except Exception:
+                    logger.exception("launch profile fold failed")
+                while actor.pending_calls:
+                    pending_spec = actor.pending_calls.popleft()
+                    prec = self.tasks[pending_spec.task_id]
+                    self._dispatch_actor_task(prec)
+        if creation_failed:
+            # reclaim the dedicated worker: release creation resources and
+            # terminate the process (it holds a broken actor instance)
+            w.current_task = None
+            self._release_resources(w)
+            try:
+                w.conn.send(("exit",))
+            except (OSError, EOFError):
+                pass
+            self._on_worker_death(wid, graceful=True)
+            return
+        # return worker to pool (actor workers stay dedicated)
+        if w.state in ("busy", "blocked") and (spec is None or spec.task_type != TaskType.ACTOR_TASK):
+            if spec is not None and spec.task_type == TaskType.ACTOR_CREATION:
+                # swap creation-demand resources for lifetime resources
+                self._downgrade_to_lifetime(w, spec)
+            elif retire:
+                self._retire_worker(wid)
+            else:
+                self._release_resources(w)
+                w.current_task = None
+                w.state = "idle"
+                w.idle_since = time.monotonic()
+                self._idle_by_node[w.node_id].append(wid)
+        elif spec is not None and spec.task_type == TaskType.ACTOR_TASK:
+            w.current_task = None
+
+    @staticmethod
+    def _retryable_app_error(entry: Tuple, retry_exceptions) -> bool:
+        if retry_exceptions is True:
+            return True
+        try:
+            err = pickle.loads(entry[1])
+        except Exception:
+            return False
+        cause = getattr(err, "cause", None) or err
+        # match by qualified name across the cause's MRO (subclasses retry
+        # too); class identity does not survive by-value pickling
+        wanted = set(retry_exceptions)
+        for c in type(cause).__mro__:
+            if f"{c.__module__}.{c.__qualname__}" in wanted:
+                return True
+        return False
+
+    def _unpin(self, oids):
+        for oid in oids:
+            self._ref_counts[oid] -= 1
+            if self._ref_counts[oid] <= 0:
+                self._ref_counts.pop(oid, None)
+                self._maybe_free(oid)
+
+    def _downgrade_to_lifetime(self, w: WorkerState, spec: TaskSpec):
+        self._dispatch_dirty = True
+        lifetime = spec.lifetime_resources or {}
+        # the creation charge was settled when __init__ FINISHED; the
+        # actor's lifetime resources are re-charged against the owning
+        # job's quota ledger for as long as the worker lives (released in
+        # _on_worker_death — WorkerState.job_charged is the receipt)
+        if lifetime:
+            js = self._jobs.get(spec.task_id.job_id().binary())
+            if js is not None:
+                w.job_charged = dict(lifetime)
+                for k, v in lifetime.items():
+                    js.usage[k] = quantize(js.usage.get(k, 0.0) + v)
+        if w.pg_reservation is not None:
+            pg_id, i = w.pg_reservation
+            pg = self.placement_groups.get(pg_id)
+            if pg is not None and pg.state == "CREATED":
+                avail = pg.bundle_available[i]
+                for k, v in w.acquired.items():
+                    avail[k] = min(avail.get(k, 0.0) + v, pg.bundles[i].get(k, 0.0))
+                for k, v in lifetime.items():
+                    avail[k] = avail.get(k, 0.0) - v
+        elif w.acquired_node is not None:
+            node = self.nodes.get(w.acquired_node)
+            if node is not None:
+                node.release(w.acquired)
+                node.acquire(lifetime)
+        w.acquired = dict(lifetime)
+        w.current_task = None
+
+    def _release_resources(self, w: WorkerState):
+        self._dispatch_dirty = True
+        if w.pg_reservation is not None:
+            pg_id, i = w.pg_reservation
+            pg = self.placement_groups.get(pg_id)
+            if pg is not None and pg.state == "CREATED":
+                avail = pg.bundle_available[i]
+                for k, v in w.acquired.items():
+                    avail[k] = min(avail.get(k, 0.0) + v, pg.bundles[i].get(k, 0.0))
+            w.pg_reservation = None
+        elif w.acquired and w.acquired_node is not None:
+            node = self.nodes.get(w.acquired_node)
+            if node is not None:
+                node.release(w.acquired)
+        if w.accel_alloc and w.accel_node is not None:
+            node = self.nodes.get(w.accel_node)
+            if node is not None:
+                node.instances().free(w.accel_alloc)
+        w.acquired = {}
+        w.acquired_node = None
+        w.accel_alloc = {}
+        w.accel_node = None
+
+    def _commit_result(self, oid: ObjectID, entry: Tuple):
+        self._commit_count += 1
+        self.memory_store.put(oid, entry)
+        self._wake_waiters(oid, entry)
+
+    def _pubsub_fanout(self, channel: str, blob: bytes) -> None:
+        """Push one published message to every subscriber of a channel.
+        Dead worker subscribers are pruned lazily here (and their conns'
+        failures route through the normal worker-death path)."""
+        ch = self._pubsub.get(channel)
+        if ch is None:
+            return
+        for q in ch["local"]:
+            q.put(blob)
+        dead = []
+        # snapshot: _on_worker_death prunes the dead wid from this very set
+        for wid in list(ch["workers"]):
+            w = self.workers.get(wid)
+            if w is None or w.state == "dead":
+                dead.append(wid)
+                continue
+            try:
+                w.conn.send(("pubsub_msg", channel, blob))
+            except (OSError, EOFError):
+                dead.append(wid)
+                self._on_worker_death(wid)
+        for wid in dead:
+            ch["workers"].discard(wid)
+        if not ch["workers"] and not ch["local"]:
+            self._pubsub.pop(channel, None)
+
+    def _wake_waiters(self, oid: ObjectID, entry: Tuple):
+        # wake dependent tasks
+        for tid in self._dep_waiters.pop(oid, ()):  # type: ignore[arg-type]
+            rec = self.tasks.get(tid)
+            if rec is None:
+                continue
+            rec.unresolved_deps.discard(oid)
+            if not rec.unresolved_deps and rec.state == "WAITING_DEPS":
+                self._make_schedulable(rec)
+        # wake worker pulls
+        for wid, req_id in self._pull_waiters.pop(oid, ()):  # type: ignore[arg-type]
+            w = self.workers.get(wid)
+            if w is not None and w.state != "dead":
+                send_entry = entry
+                if entry[0] == "stored":
+                    send_entry = self._stored_entry_for(oid, entry, w.node_id)
+                    if len(send_entry) == 1:
+                        self._ensure_local(oid, w.node_id)
+                try:
+                    w.conn.send(("pull_reply", req_id, {oid: send_entry}))
+                except (OSError, EOFError):
+                    self._on_worker_death(wid)
+
+    def _fail_task(self, rec: TaskRecord, error: Exception):
+        rec.state = "FAILED"
+        rec.end_time = time.monotonic()
+        self._job_settle(rec)
+        self._record_event(rec.spec, "FAILED")
+        rec.error_type = type(error).__name__
+        if rec.error_node is None and rec.worker_id is not None:
+            w = self.workers.get(rec.worker_id)
+            if w is not None:
+                rec.error_node = w.node_id.hex()
+                if w.proc is not None:
+                    rec.error_pid = w.proc.pid
+        self.record_cluster_event(
+            "TASK_FAILED",
+            f"task {rec.spec.name or rec.spec.task_id.hex()[:16]} failed: "
+            f"{rec.error_type}: {error}",
+            severity="ERROR",
+            task_id=rec.spec.task_id.hex(),
+            name=rec.spec.name,
+            error_type=rec.error_type,
+            attempt=rec.attempt,
+            node_id=rec.error_node,
+            pid=rec.error_pid,
+        )
+        blob = pickle.dumps(error)
+        for oid in rec.spec.return_ids():
+            self._commit_result(oid, ("error", blob))
+        if rec.spec.task_type != TaskType.ACTOR_CREATION:
+            self._unpin(rec.spec.arg_ref_ids())
+        if rec.spec.task_type == TaskType.ACTOR_TASK:
+            self._actor_task_settled(rec.spec.actor_id)
+
+    def _actor_task_settled(self, actor_id) -> None:
+        """One outstanding method call finished or failed; perform the
+        deferred out-of-scope kill once the last one drains."""
+        actor = self.actors.get(actor_id)
+        if actor is None:
+            return
+        if actor.first_method_ts is None:
+            # launch lifecycle: first settled method call == "actor is
+            # actually serving" (the launch-profile first_method boundary)
+            actor.first_method_ts = self._pass_now or time.time()
+        actor.outstanding = max(0, actor.outstanding - 1)
+        if (
+            actor.pending_kill
+            and actor.outstanding == 0
+            and actor.state != "DEAD"
+        ):
+            actor.pending_kill = False
+            self._kill_actor(actor_id, no_restart=True)
+
+    # ---- failure handling ------------------------------------------------
+
+    def _on_worker_death(self, wid: WorkerID, graceful: bool = False):
+        w = self.workers.get(wid)
+        if w is None or w.state == "dead":
+            return
+        spawn_failed = w.state == "starting" and not graceful
+        if w.state == "starting":
+            # died before "ready": un-count it from the spawn throttle or the
+            # node wedges at the 4-starting cap with nothing ever arriving
+            self._starting_count[w.node_id] = max(
+                0, self._starting_count[w.node_id] - 1
+            )
+        w.state = "dead"
+        w.dead_since = time.monotonic()
+        dead_pid = w.proc.pid if w.proc is not None else None
+        running_name = None
+        if w.current_task is not None:
+            trec = self.tasks.get(w.current_task)
+            if trec is not None:
+                running_name = trec.spec.name
+        self.record_cluster_event(
+            "WORKER_DIED",
+            f"worker {wid.hex()[:12]} "
+            + ("exited" if graceful else "died unexpectedly")
+            + (f" while running {running_name}" if running_name and not graceful else ""),
+            severity="INFO" if graceful else "ERROR",
+            worker_id=wid.hex(),
+            node_id=w.node_id.hex(),
+            pid=dead_pid,
+            actor_id=w.actor_id.hex() if w.actor_id else None,
+            task_id=w.current_task.hex() if w.current_task else None,
+            graceful=graceful,
+        )
+        if spawn_failed:
+            # the spawn never produced a ready worker: typed event with
+            # whatever provenance exists (exit code, persisted stderr
+            # tail), then fail-fast pending creations once the node's
+            # failure streak crosses the threshold
+            try:
+                self._note_spawn_failure(w, wid, dead_pid)
+            except Exception:
+                logger.exception("spawn failure forensics failed")
+        else:
+            self._spawn_started.pop(wid, None)
+        if self._conn_to_worker.pop(w.conn, None) is not None:
+            self._sel_unregister(w.conn)
+        try:
+            w.conn.close()
+        except OSError:
+            pass
+        self._release_resources(w)
+        # prune the dead worker from EVERY pubsub channel now (and drop
+        # channels it emptied) instead of lazily on the next publish — an
+        # idle channel would otherwise hold dead worker ids (and its own
+        # dict entry) forever
+        for channel in [
+            ch for ch, rec in self._pubsub.items() if wid in rec["workers"]
+        ]:
+            rec = self._pubsub[channel]
+            rec["workers"].discard(wid)
+            if not rec["workers"] and not rec["local"]:
+                self._pubsub.pop(channel, None)
+        # release the dead borrower's registered refs (parity: the owner
+        # noticing borrower death in the reference's borrower protocol) —
+        # without this every borrow held by a crashed worker leaks forever
+        held = self._holder_refs.pop(wid, None)
+        if held:
+            doomed = [oid for oid, cnt in held.items() for _ in range(cnt)]
+            self._unpin(doomed)
+        try:
+            self._idle_by_node[w.node_id].remove(wid)
+        except ValueError:
+            pass
+        # fail/retry the running task
+        if w.current_task is not None:
+            rec = self.tasks.get(w.current_task)
+            if rec is not None and rec.state == "RUNNING":
+                # provenance: where the attempt died, whatever happens next
+                rec.error_node = w.node_id.hex()
+                rec.error_pid = dead_pid
+                preempted = rec.preempted
+                if (
+                    not graceful
+                    and (preempted or rec.retries_left > 0)
+                    and rec.spec.task_type == TaskType.NORMAL_TASK
+                ):
+                    # preemption spares the retry budget: the kill is the
+                    # cluster's arbitration decision, not the task's fault
+                    rec.preempted = False
+                    if not preempted:
+                        rec.retries_left -= 1
+                    self._job_settle(rec)
+                    rec.state = "PENDING"
+                    rec.worker_id = None
+                    self._ready_push(rec)
+                    # tracing: the retried attempt stays linked to the same
+                    # trace — the killed worker's batch (and its RUNNING/
+                    # FAILED events) may have died unflushed, so this head-
+                    # side RETRY record is the durable attempt link
+                    self._record_event(rec.spec, "RETRY")
+                    self._record_task_retry(
+                        rec, "preempted" if preempted else "worker died"
+                    )
+                elif not graceful:
+                    self._fail_task(
+                        rec,
+                        exc.WorkerCrashedError(
+                            f"worker died executing {rec.spec.name or rec.spec.task_id.hex()}"
+                        ),
+                    )
+        # actor lifetime resources charged to the owning job die with the
+        # worker (the creation charge was transferred here when __init__
+        # finished)
+        if w.job_charged:
+            charged, w.job_charged = w.job_charged, None
+            js = self._jobs.get(
+                w.actor_id.binary()[-4:] if w.actor_id is not None else b""
+            )
+            if js is not None:
+                self._release_usage(js, charged)
+        # actor death & restart (parity: GcsActorManager max_restarts,
+        # gcs_actor_manager.h:278)
+        if w.actor_id is not None:
+            actor = self.actors.get(w.actor_id)
+            if actor is not None and actor.state != "DEAD":
+                # a preemption kill is the cluster's arbitration decision:
+                # restart and re-queue without spending the actor's
+                # max_restarts or its calls' retry budgets. Eligibility is
+                # NOT widened — a max_restarts=0 actor stays dead (its
+                # owner chose at-most-once; the elastic-training executor
+                # replaces its own ranks), preemption just doesn't bill
+                # the budget of actors that do restart.
+                spared = actor.preempted
+                actor.preempted = False
+                will_restart = not graceful and actor.restarts_left != 0
+                # in-flight calls: requeue onto the restarted actor when a
+                # max_task_retries budget remains, else fail
+                for rec in list(self.tasks.values()):
+                    if (
+                        rec.spec.task_type == TaskType.ACTOR_TASK
+                        and rec.spec.actor_id == w.actor_id
+                        and rec.state == "RUNNING"
+                    ):
+                        call_spared = rec.preempted
+                        rec.preempted = False
+                        if will_restart and (call_spared or rec.retries_left != 0):
+                            if rec.retries_left > 0 and not call_spared:
+                                rec.retries_left -= 1
+                            self._job_settle(rec)
+                            rec.state = "PENDING"
+                            rec.worker_id = None
+                            actor.pending_calls.append(rec.spec)
+                        else:
+                            # this call was dispatched to the worker: it may
+                            # have begun executing (started-marker for serve
+                            # failover — torn work must not be auto-retried)
+                            self._fail_task(
+                                rec,
+                                exc.ActorDiedError(
+                                    w.actor_id,
+                                    "actor worker died",
+                                    task_started=True,
+                                ),
+                            )
+                if graceful:
+                    actor.state = "DEAD"
+                    actor.death_cause = "actor exited"
+                    self._drain_actor_queue(actor)
+                elif will_restart:
+                    if actor.restarts_left > 0 and not spared:
+                        actor.restarts_left -= 1
+                    actor.state = "RESTARTING"
+                    actor.worker_id = None
+                    respec = actor.creation_spec
+                    rec = TaskRecord(spec=respec, retries_left=0)
+                    self.tasks[respec.task_id] = rec
+                    self._ready_push(rec)
+                else:
+                    actor.state = "DEAD"
+                    actor.death_cause = "actor worker died"
+                    self._drain_actor_queue(actor)
+        try:
+            if w.proc is not None:
+                w.proc.join(timeout=0)
+        except Exception:
+            pass
+
+    def _drain_actor_queue(self, actor: ActorState):
+        while actor.pending_calls:
+            spec = actor.pending_calls.popleft()
+            rec = self.tasks.get(spec.task_id)
+            if rec is not None:
+                # still in the actor mailbox: provably never started
+                self._fail_task(
+                    rec,
+                    exc.ActorDiedError(
+                        actor.actor_id,
+                        actor.death_cause or "actor died",
+                        task_started=False,
+                    ),
+                )
+
+    def _kill_actor(self, actor_id: ActorID, no_restart: bool):
+        actor = self.actors.get(actor_id)
+        if actor is None:
+            return
+        if no_restart:
+            actor.restarts_left = 0
+        if actor.name:
+            self.gcs.named_actors.pop((actor.namespace, actor.name), None)
+        if actor.worker_id is not None:
+            w = self.workers.get(actor.worker_id)
+            if w is not None and w.proc is not None:
+                self._terminate_worker(w)
+                self._on_worker_death(actor.worker_id, graceful=no_restart)
+        if no_restart:
+            actor.state = "DEAD"
+            actor.death_cause = "killed via ray_tpu_torch.kill"
+            self._drain_actor_queue(actor)
+
+    def _cancel_task(self, task_id: TaskID, force: bool):
+        rec = self.tasks.get(task_id)
+        if rec is None:
+            return
+        if rec.state in ("PENDING", "WAITING_DEPS"):
+            self._fail_task(rec, exc.RayTpuError("task cancelled"))
+            self._ready_remove(rec.spec)
+        elif rec.state == "RUNNING" and force and rec.worker_id is not None:
+            w = self.workers.get(rec.worker_id)
+            if w is not None and w.proc is not None:
+                try:
+                    w.proc.terminate()
+                except Exception:
+                    pass
+
+    def _on_remove_node(self, node_id: NodeID):
+        node = self.nodes.get(node_id)
+        if node is None:
+            return
+        node.alive = False
+        for wid, w in list(self.workers.items()):
+            if w.node_id == node_id and w.state != "dead":
+                self._terminate_worker(w)
+                self._on_worker_death(wid)
+
+    # ---- placement groups (parity: GcsPlacementGroupManager 2PC,
+    # gcs_placement_group_manager.h:230) --------------------------------
+
+    def _create_pg(self, pg: PlacementGroupState):
+        self.placement_groups[pg.pg_id] = pg
+        nodes = [n for n in self.nodes.values() if n.alive]
+        placement = self._place_bundles(pg.bundles, pg.strategy, nodes)
+        if placement is None:
+            pg.state = "PENDING"  # infeasible now; retried when nodes change
+            return
+        # commit: reserve resources on chosen nodes
+        for i, node in enumerate(placement):
+            node.acquire(pg.bundles[i])
+        pg.bundle_nodes = [n.node_id for n in placement]
+        pg.bundle_available = [dict(b) for b in pg.bundles]
+        pg.state = "CREATED"
+        # push-notify waiters (pg.ready()/wait() ride the object plane)
+        from ray_tpu_torch._private import serialization
+        from ray_tpu_torch._private.ids import pg_ready_sentinel
+
+        self._commit_result(
+            pg_ready_sentinel(pg.pg_id),
+            ("inline", serialization.get_context().serialize_to_bytes(True)),
+        )
+
+    def _place_bundles(
+        self, bundles, strategy, nodes: List[NodeState]
+    ) -> Optional[List[NodeState]]:
+        """Bundle placement policies: PACK/SPREAD/STRICT_* (parity:
+        ``bundle_scheduling_policy.cc``)."""
+        if strategy == "STRICT_PACK":
+            for n in nodes:
+                tot: Dict[str, float] = {}
+                for b in bundles:
+                    for k, v in b.items():
+                        tot[k] = tot.get(k, 0.0) + v
+                if n.can_run(tot):
+                    return [n] * len(bundles)
+            return None
+        shadow = {n.node_id: dict(n.available) for n in nodes}
+
+        def fits(n, b):
+            av = shadow[n.node_id]
+            return all(av.get(k, 0.0) >= v - 1e-9 for k, v in b.items())
+
+        def take(n, b):
+            av = shadow[n.node_id]
+            for k, v in b.items():
+                av[k] = av.get(k, 0.0) - v
+
+        out: List[NodeState] = []
+        if strategy == "STRICT_SPREAD":
+            used: Set[NodeID] = set()
+            for b in bundles:
+                cand = [n for n in nodes if n.node_id not in used and fits(n, b)]
+                if not cand:
+                    return None
+                chosen = cand[0]
+                used.add(chosen.node_id)
+                take(chosen, b)
+                out.append(chosen)
+            return out
+        if strategy == "SPREAD":
+            order = sorted(nodes, key=lambda n: n.utilization())
+            i = 0
+            for b in bundles:
+                placedn = None
+                for j in range(len(order)):
+                    n = order[(i + j) % len(order)]
+                    if fits(n, b):
+                        placedn = n
+                        i += j + 1
+                        break
+                if placedn is None:
+                    return None
+                take(placedn, b)
+                out.append(placedn)
+            return out
+        # PACK (default): fewest nodes, first-fit-decreasing onto local first
+        order = sorted(
+            nodes, key=lambda n: (n.node_id != self._node.head_node_id, n.utilization())
+        )
+        for b in bundles:
+            placedn = None
+            for n in order:
+                if fits(n, b):
+                    placedn = n
+                    break
+            if placedn is None:
+                return None
+            take(placedn, b)
+            out.append(placedn)
+        return out
+
+    def _retry_pending_pgs(self):
+        """Re-attempt placement of PGs that were infeasible at creation
+        (parity: GcsPlacementGroupManager pending queue retry)."""
+        for pg in self.placement_groups.values():
+            if pg.state == "PENDING":
+                self._create_pg(pg)
+
+    def _remove_pg(self, pg_id: PlacementGroupID):
+        pg = self.placement_groups.get(pg_id)
+        if pg is None or pg.state == "REMOVED":
+            return
+        if pg.state == "CREATED":
+            for i, nid in enumerate(pg.bundle_nodes):
+                node = self.nodes.get(nid)
+                if node is not None:
+                    # release what is not currently loaned to running tasks
+                    node.release(pg.bundle_available[i])
+        pg.state = "REMOVED"
+        from ray_tpu_torch._private.ids import pg_ready_sentinel
+
+        self.memory_store.evict(pg_ready_sentinel(pg_id))
+
+    # ---- rpc served to workers ------------------------------------------
+
+    def _serve_rpc(self, op: str, args):
+        if op == "object_shm_ref":
+            # zero-copy local data plane for native clients (parity role:
+            # the reference's plasma client mmap access): a same-machine
+            # caller gets the shm dir of a node holding the object and
+            # reads the arena directly (cpp/ray_tpu_torch_client.cc GetLocalShm)
+            mid, oid_bin = args
+            oid = ObjectID(oid_bin)
+            for nid in list(self._object_locations.get(oid) or ()):
+                node = self.nodes.get(nid)
+                if (
+                    node is not None
+                    and node.alive
+                    and node.host_id == mid
+                    and node.shm_dir
+                ):
+                    return node.shm_dir
+            # head-store objects: the head's own node entry
+            head = self.nodes.get(self._node.head_node_id)
+            if (
+                head is not None
+                and head.host_id == mid
+                and head.shm_dir
+                and self._node.store_client is not None
+                and self._node.store_client.contains(oid)
+            ):
+                return head.shm_dir
+            return None
+        if op == "pubsub_sync":
+            # loop-ordered no-op: a subscriber's barrier that its
+            # pubsub_sub (same channel: conn recv order / loop queue) has
+            # been registered before subscribe() returns
+            return True
+        if op == "kv_put":
+            return self.gcs.kv_put(*args)
+        if op == "kv_get":
+            return self.gcs.kv_get(*args)
+        if op == "kv_del":
+            return self.gcs.kv_del(*args)
+        if op == "kv_pop":
+            return self.gcs.kv_pop(*args)
+        if op == "kv_keys":
+            return self.gcs.kv_keys(*args)
+        if op == "get_actor_by_name":
+            ns, name = args
+            return self.gcs.named_actors.get((ns, name))
+        if op == "claim_actor_name":
+            ns, name, actor_id = args
+            claimed = self.gcs.claim_actor_name(ns, name, actor_id)
+            if claimed and actor_id not in self.actors:
+                # Pre-register so a method call submitted through another
+                # pipe before the ACTOR_CREATION spec lands queues instead of
+                # failing with "actor not found" (the get_actor-by-name race;
+                # ref: GcsActorManager registers state with the name,
+                # gcs_actor_manager.h:278). If the claimant crashes before
+                # submitting the creation spec, the deadline sweep fails the
+                # queued calls instead of hanging them forever.
+                self.actors[actor_id] = ActorState(
+                    actor_id=actor_id,
+                    creation_spec=None,
+                    name=name,
+                    namespace=ns,
+                )
+                self._placeholder_deadlines[actor_id] = time.monotonic() + 30.0
+            return claimed
+        if op == "actor_state":
+            st = self.actors.get(args[0])
+            return None if st is None else st.state
+        if op == "object_ready":
+            return self.memory_store.contains(args[0])
+        if op == "resolve_actors":
+            # direct transport resolution (parity: the caller fetching the
+            # actor's rpc address from the GCS actor table once, then talking
+            # worker-to-worker — actor_task_submitter.h:73)
+            out = []
+            for aid_bin in args[0]:
+                st = self.actors.get(ActorID(aid_bin))
+                if st is None:
+                    # distinct from DEAD: a borrowed handle can race the
+                    # creation spec to the head — callers poll a while
+                    out.append(("unknown",))
+                elif st.state == "DEAD":
+                    out.append(("dead", st.death_cause or "actor died"))
+                elif st.state == "ALIVE" and st.worker_id is not None:
+                    w = self.workers.get(st.worker_id)
+                    if w is None or w.state == "dead":
+                        out.append(("pending",))
+                    elif w.direct_addr:
+                        out.append(
+                            ("alive", w.direct_addr, st.max_task_retries)
+                        )
+                    else:
+                        out.append(("relay",))
+                else:
+                    out.append(("pending",))
+            return out
+        if op == "pg_state":
+            pg = self.placement_groups.get(args[0])
+            return None if pg is None else pg.state
+        if op == "list_tasks":
+            def _task_row(t: TaskRecord) -> dict:
+                w = self.workers.get(t.worker_id) if t.worker_id else None
+                node = t.error_node
+                pid = t.error_pid
+                if w is not None:
+                    node = node or w.node_id.hex()
+                    if pid is None and w.proc is not None:
+                        pid = w.proc.pid
+                return {
+                    "task_id": t.spec.task_id.hex(),
+                    "name": t.spec.name,
+                    "type": t.spec.task_type.name,
+                    "state": t.state,
+                    "worker_id": t.worker_id.hex() if t.worker_id else None,
+                    "retries_left": t.retries_left,
+                    # failure forensics: which attempt, what failed, where
+                    "attempt": t.attempt,
+                    "error_type": t.error_type,
+                    "node_id": node,
+                    "pid": pid,
+                }
+
+            rows = [_task_row(t) for t in list(self.tasks.values())]
+            return self._apply_limit(rows, args)
+        if op == "list_actors":
+            rows = []
+            for a in list(self.actors.values()):
+                w = self.workers.get(a.worker_id) if a.worker_id else None
+                spec_name = (
+                    a.creation_spec.name if a.creation_spec is not None else None
+                )
+                rows.append(
+                    {
+                        "actor_id": a.actor_id.hex(),
+                        "state": a.state,
+                        "name": a.name,
+                        "namespace": a.namespace,
+                        "pending_calls": len(a.pending_calls),
+                        "restarts_left": a.restarts_left,
+                        # provenance: which class, where it runs — lets
+                        # tooling (and the chaos harness) target actors by
+                        # kind without holding their handles
+                        "class_name": (
+                            spec_name.rsplit(".", 1)[0] if spec_name else None
+                        ),
+                        "pid": (
+                            w.proc.pid
+                            if w is not None and w.proc is not None
+                            else None
+                        ),
+                        "node_id": w.node_id.hex() if w is not None else None,
+                        # launch lifecycle (control-plane observability):
+                        # which creation stage the actor is in / blocked
+                        # at, the per-stage wall timestamps, and the
+                        # settled decomposition
+                        "launch_stage": a.launch_stage,
+                        "stage_ts": dict(a.stage_ts),
+                        "lifecycle_ms": {
+                            k: round(v, 3) for k, v in a.lifecycle_ms.items()
+                        },
+                        "first_method_ts": a.first_method_ts,
+                        "trace_id": a.launch_trace,
+                    }
+                )
+            return self._apply_limit(rows, args)
+        if op == "list_decisions":
+            # decision flight recorder: newest-last rows, optional
+            # kind filter pushed server-side
+            limit = args[0] if args and isinstance(args[0], int) else 1000
+            kind = args[1] if len(args) > 1 else None
+            with self._decision_lock:
+                rows = list(self._decisions)
+            if kind:
+                rows = [r for r in rows if r.get("kind") == kind]
+            return rows[-limit:]
+        if op == "record_decision":
+            # autoscaler (off-loop) decision push; tolerant of malformed
+            # records — the flight recorder is observability, never control
+            dec = args[0] if args else None
+            if isinstance(dec, dict):
+                kind = dec.pop("kind", "autoscaler")
+                self._record_decision(kind, **dec)
+            return True
+        if op == "launch_profile":
+            return self._launch_profile_summary(
+                args[0] if args and isinstance(args[0], int) else 50
+            )
+        if op == "list_workers":
+            rows = [
+                {
+                    "worker_id": w.worker_id.hex(),
+                    "node_id": w.node_id.hex(),
+                    "state": w.state,
+                    "actor_id": w.actor_id.hex() if w.actor_id else None,
+                    "pid": w.proc.pid if w.proc is not None else None,
+                }
+                for w in list(self.workers.values())
+            ]
+            return self._apply_limit(rows, args)
+        if op == "list_placement_groups":
+            rows = [
+                {
+                    "placement_group_id": pg.pg_id.hex(),
+                    "state": pg.state,
+                    "strategy": pg.strategy,
+                    "bundles": pg.bundles,
+                    "name": pg.name,
+                }
+                for pg in list(self.placement_groups.values())
+            ]
+            return self._apply_limit(rows, args)
+        if op == "list_objects":
+            # memory plane: provenance-enriched rows, filters pushed
+            # server-side, hard row cap + truncation flag (see
+            # _list_objects_rows)
+            limit = args[0] if args and isinstance(args[0], int) else None
+            filters = args[1] if len(args) > 1 else None
+            return self._list_objects_rows(limit, filters)
+        if op == "summarize_objects":
+            group_by = args[0] if args and args[0] else "callsite"
+            limit = args[1] if len(args) > 1 and args[1] else 50
+            return self._summarize_objects(group_by, int(limit))
+        if op == "memory_forensics":
+            job_hex = args[0] if args else None
+            job_bin = bytes.fromhex(job_hex) if job_hex else None
+            return self.memory_forensics_snapshot(job_bin=job_bin)
+        if op == "pending_demand":
+            # resource shapes the scheduler cannot currently place (autoscaler
+            # input; parity: GcsAutoscalerStateManager cluster_resource_state).
+            # Built from the shard index — O(shards), not a copy of a
+            # million-deep queue — and capped: the bin-packing consumer
+            # saturates long before 10k entries.
+            demand: List[Dict[str, float]] = []
+            cap = 10_000
+            for shard in self._ready_shards.values():
+                if len(demand) >= cap:
+                    break
+                if not shard.queue:
+                    continue
+                if shard.demand is not None:
+                    k = min(len(shard.queue), cap - len(demand))
+                    demand.extend(dict(shard.demand) for _ in range(k))
+                else:
+                    for tid in list(shard.queue)[: cap - len(demand)]:
+                        rec = self.tasks.get(tid)
+                        if rec is not None and rec.state == "PENDING":
+                            demand.append(dict(rec.spec.resources))
+            for pg in self.placement_groups.values():
+                if pg.state == "PENDING":
+                    demand.extend(dict(b) for b in pg.bundles)
+            return demand
+        if op == "backlog_summary":
+            # per-resource-shape backlog queued at the head (shards) — the
+            # autoscaler's demand signal and `ray_tpu_torch status --backlog`
+            shapes: Dict[Tuple, dict] = {}
+
+            def _row(shape_t: Tuple) -> dict:
+                row = shapes.get(shape_t)
+                if row is None:
+                    row = shapes[shape_t] = {
+                        "shape": dict(shape_t),
+                        "queued": 0,
+                    }
+                return row
+
+            for shard in self._ready_shards.values():
+                if not shard.queue:
+                    continue
+                if shard.demand is not None:
+                    _row(tuple(sorted(shard.demand.items())))["queued"] += len(
+                        shard.queue
+                    )
+                else:
+                    for tid in shard.queue:
+                        rec = self.tasks.get(tid)
+                        if rec is not None and rec.state == "PENDING":
+                            _row(
+                                tuple(sorted(rec.spec.resources.items()))
+                            )["queued"] += 1
+            return {
+                "shapes": list(shapes.values()),
+                "pg_pending": [
+                    dict(b)
+                    for pg in self.placement_groups.values()
+                    if pg.state == "PENDING"
+                    for b in pg.bundles
+                ],
+            }
+        if op == "summarize_tasks":
+            summary: Dict[str, Dict[str, int]] = {}
+            for t in list(self.tasks.values()):
+                row = summary.setdefault(t.spec.name or "unnamed", {})
+                row[t.state] = row.get(t.state, 0) + 1
+            return summary
+        if op == "list_nodes":
+            rows = [
+                {
+                    "node_id": n.node_id.hex(),
+                    "alive": n.alive,
+                    "total": dict(n.total),
+                    "available": dict(n.available),
+                    "labels": dict(n.labels),
+                }
+                for n in self.nodes.values()
+            ]
+            return self._apply_limit(rows, args)
+        if op == "ensure_local":
+            # start a transfer of oid toward node (default: head) and return
+            # whether a local copy already exists there; an optional third
+            # arg carries the requester's (trace_id, span_id)
+            oid = args[0]
+            dest = (
+                args[1]
+                if len(args) > 1 and args[1] is not None
+                else self._node.head_node_id
+            )
+            locs = self._object_locations.get(oid, set())
+            if dest in locs:
+                return True
+            self._ensure_local(oid, dest)
+            return False
+        if op == "list_links":
+            # transfer plane: the per-(src, dst, path) link ledger
+            return self._net_link_rows(
+                args[0] if args and isinstance(args[0], int) else 10_000
+            )
+        if op == "list_transfers":
+            # recent completed transfers (stage decompositions), newest first
+            limit = args[0] if args and isinstance(args[0], int) else 100
+            return list(self._net_recent)[-int(limit):][::-1]
+        if op == "summarize_transfers":
+            group_by = args[0] if args else "link"
+            limit = args[1] if len(args) > 1 and args[1] else 50
+            return self._net_summarize(group_by, limit)
+        if op == "object_locations":
+            return [n.hex() for n in self._object_locations.get(args[0], set())]
+        if op == "same_host_dirs":
+            # shm dirs of nodes holding oid that share the requester's
+            # machine — the zero-copy read set (plasma: one host, one memory)
+            dest = args[1] if len(args) > 1 else self._node.head_node_id
+            return list(self._same_host_dirs_for(args[0], dest))
+        if op == "call_actor":
+            # Frontend-agnostic actor invocation (no Python pickled callables
+            # required from the caller) — the entry point for the C++ API
+            # frontend (parity role: ``cpp/src/ray/runtime/task/``). args_blob
+            # is a plain-pickled tuple of positional arguments.
+            ns, name, method, args_blob = args
+            actor_id = self.gcs.named_actors.get((ns or "default", name))
+            if actor_id is None:
+                raise ValueError(f"no actor named '{name}' in namespace '{ns}'")
+            import cloudpickle as _cp
+            import pickle as _pkl
+
+            call_args = _pkl.loads(args_blob) if args_blob else ()
+            st = self.actors.get(actor_id)
+            from ray_tpu_torch._private import serialization as _serde
+
+            serde = _serde.get_context()
+            spec = TaskSpec(
+                task_id=TaskID.for_task(actor_id),
+                task_type=TaskType.ACTOR_TASK,
+                function=_cp.dumps(method),
+                # inline-serde framing exactly like pack_args: a raw bytes
+                # value beginning with 0x01 must not be misread as a blob
+                args=[Arg(value=b"\x01" + serde.serialize_to_bytes(v))
+                      for v in call_args],
+                kwargs={},
+                num_returns=1,
+                resources={},
+                name=method,
+                actor_id=actor_id,
+                max_task_retries=st.max_task_retries if st else 0,
+            )
+            self._on_submit(spec)
+            return spec.return_ids()[0].binary()
+        if op == "get_object_blob":
+            # Small-object fetch over the control socket (C++ frontend get):
+            # returns ("ok", bytes) | ("err", bytes) | None if not ready yet.
+            oid = args[0] if isinstance(args[0], ObjectID) else ObjectID(args[0])
+            entry = self.memory_store.get_entry(oid)
+            if entry is None:
+                return None
+            if entry[0] == "inline":
+                return ("ok", bytes(entry[1]))
+            if entry[0] == "error":
+                return ("err", bytes(entry[1]))
+            store = self._node.store_client
+            if store is not None and store.contains(oid):
+                view = store.get(oid)
+                if view is not None:
+                    return ("ok", bytes(view))
+            self._ensure_local(oid, self._node.head_node_id)
+            return None
+        if op == "node_stats":
+            return self.node_stats()
+        if op == "event_stats":
+            # parity: event_stats.h handler instrumentation. __loop__ gives
+            # this scheduler thread's cumulative CPU vs wall time — the
+            # head-bound-or-box-bound discriminator: a saturated single
+            # thread shows cpu_s/wall_s near 1.0 (this rpc runs ON the loop
+            # thread, so CLOCK_THREAD_CPUTIME_ID is the loop's own clock)
+            out = {
+                k: {"count": int(c), "total_s": t, "mean_us": (t / c * 1e6 if c else 0.0)}
+                for k, (c, t) in self._event_stats.items()
+            }
+            # large-object data-path stages (serialize/alloc/copy/seal,
+            # spill/restore) from THIS process's store clients — the
+            # put-bandwidth budget becomes attributable per stage. Entries
+            # carry total bytes so GiB/s per stage falls out directly.
+            from ray_tpu_torch._private import fastcopy as _fastcopy
+
+            for k, (c, t, b) in _fastcopy.stage_stats().items():
+                out[k] = {
+                    "count": int(c),
+                    "total_s": t,
+                    "mean_us": (t / c * 1e6 if c else 0.0),
+                    "bytes": int(b),
+                    "gib_per_s": (b / t / 2**30 if t > 0 and b else 0.0),
+                }
+            out["__loop__"] = {
+                "cpu_s": time.clock_gettime(time.CLOCK_THREAD_CPUTIME_ID),
+                "wall_s": time.monotonic() - self._loop_started_at,
+            }
+            out["__ownership__"] = {
+                "ref_ops": self._refop_count,
+                "commits": self._commit_count,
+            }
+            return out
+        if op == "runtime_metrics":
+            # scheduler internals as first-class metric series (the
+            # telemetry-plane half of /metrics; app metrics come from the
+            # aggregated KV)
+            return self._runtime_metric_series()
+        if op == "task_events":
+            return list(self._task_events)
+        if op == "trace_events":
+            # every merged event belonging to one trace (the ray_tpu_torch.trace
+            # span-tree input); a linear scan of the bounded event log is
+            # fine for a read-path query
+            trace_id = args[0]
+            return [
+                ev for ev in self._task_events if ev.get("trace_id") == trace_id
+            ]
+        if op == "list_traces":
+            limit = args[0] if args and isinstance(args[0], int) else 100
+            rows = list(self._trace_index.values())[-limit:]
+            return [dict(r) for r in reversed(rows)]  # newest first
+        if op == "list_train_runs":
+            # training step plane: one digest row per run in the bounded
+            # StepIndex (steps seen, recompiles, goodput, attributed
+            # downtime, data-wait ratio, max rank skew)
+            return self._train_index.list_runs()
+        if op == "train_run":
+            # one run's full step-time attribution: per-step per-rank stage
+            # records (+ head-computed collective_wait and straggler rank),
+            # run-level stage totals, and the executor-pushed downtime
+            # ledger / goodput metadata
+            run = args[0] if args else None
+            max_steps = args[1] if len(args) > 1 else None
+            return self._train_index.get_run(run, max_steps=max_steps)
+        if op == "train_steps_batch":
+            # executor-pushed step records (drained off the report rpcs
+            # they rode, batched on the publish cadence)
+            for srec in args[0] if args else ():
+                try:
+                    self._train_index.ingest(srec)
+                except Exception:
+                    logger.exception("train step record ingest failed")
+            return True
+        if op == "train_run_meta":
+            # executor-pushed run metadata (periodic goodput + downtime
+            # ledger publication and the final run status)
+            run = args[0] if args else None
+            meta = args[1] if len(args) > 1 else None
+            self._train_index.note_meta(run, meta or {})
+            return True
+        if op == "profile_samples":
+            # aggregated continuous-profiler stacks, optionally filtered to
+            # one task or one trace: [(task_id, trace_id, stack, count)]
+            task_id = args[0] if args else None
+            trace_id = args[1] if len(args) > 1 else None
+            out_rows = []
+            for (t_id, tr_id, stack), n in self._profile_samples.items():
+                if task_id and t_id != task_id:
+                    continue
+                if trace_id and tr_id != trace_id:
+                    continue
+                out_rows.append((t_id, tr_id, stack, n))
+            return out_rows
+        if op == "job_latency":
+            # per-job sliding-window quantiles with exemplar trace ids
+            return {
+                job: win.snapshot()
+                for job, win in self._job_latency.items()
+            }
+        if op == "request_profile":
+            # on-demand profiler boost: fan (hz, duration_s) out to every
+            # live worker; the driver process boosts itself caller-side
+            hz, duration_s = float(args[0]), float(args[1])
+            # remembered so workers that come up mid-window get boosted too
+            self._profile_boost = (hz, time.monotonic() + duration_s)
+            sent = 0
+            for w in list(self.workers.values()):
+                if w.state not in ("idle", "busy", "blocked"):
+                    continue
+                try:
+                    w.conn.send(("profile", hz, duration_s))
+                    sent += 1
+                except (OSError, EOFError):
+                    pass
+            return sent
+        if op == "list_cluster_events":
+            rows = list(self._cluster_events)
+            limit = args[0] if args and isinstance(args[0], int) else None
+            job_hex = args[1] if len(args) > 1 else None
+            # server-side tail cursor (events --follow): only events with
+            # id beyond the caller's horizon / newer than since_ts — the
+            # executor's internal event-id polling, exposed
+            after_event_id = args[2] if len(args) > 2 else None
+            since_ts = args[3] if len(args) > 3 else None
+            if after_event_id is not None:
+                rows = [
+                    ev
+                    for ev in rows
+                    if ev.get("event_id", 0) > int(after_event_id)
+                ]
+            if since_ts is not None:
+                rows = [
+                    ev for ev in rows if ev.get("time", 0) >= float(since_ts)
+                ]
+            if job_hex:
+                # job attribution filter: explicit job_id field, or the
+                # job nested in the event's task/actor id (ids.py layout)
+                def _ev_job(ev: dict) -> Optional[str]:
+                    j = ev.get("job_id")
+                    if j:
+                        return j
+                    return _job_hex_of(
+                        task_hex=ev.get("task_id"),
+                        actor_hex=ev.get("actor_id"),
+                    )
+
+                rows = [ev for ev in rows if _ev_job(ev) == job_hex]
+            # newest events are the forensically interesting ones: truncate
+            # from the front, keep chronological order
+            return rows[-limit:] if limit is not None else rows
+        if op == "submit_job":
+            name, priority, weight, quota, meta = args
+            return self._submit_job(name, priority, weight, quota, meta)
+        if op == "job_info":
+            raw = args[0]
+            job_bin = raw if isinstance(raw, bytes) else bytes.fromhex(raw)
+            js = self._jobs.get(job_bin)
+            if js is None:
+                return None
+            return self._job_row(
+                js,
+                self._job_ready_counts().get(job_bin, 0),
+                self._admission_order(),
+            )
+        if op == "list_jobs":
+            ready = self._job_ready_counts()
+            order = self._admission_order()
+            rows = [
+                self._job_row(js, ready.get(js.job_bin, 0), order)
+                for js in sorted(self._jobs.values(), key=lambda j: j.seq)
+            ]
+            return self._apply_limit(rows, args)
+        if op == "update_job":
+            # live arbitration-knob update (ops surface: throttle a noisy
+            # tenant's quota / demote its priority / retune its weight
+            # WITHOUT killing it; enforcement applies from the next
+            # dispatch pass)
+            raw, changes = args
+            job_bin = raw if isinstance(raw, bytes) else bytes.fromhex(raw)
+            js = self._jobs.get(job_bin)
+            if js is None:
+                return None
+            if "priority" in changes:
+                js.priority = int(changes["priority"])
+            if "weight" in changes:
+                js.weight = max(float(changes["weight"]), 1e-3)
+            if "quota" in changes:
+                js.quota = {
+                    k: float(v) for k, v in (changes["quota"] or {}).items()
+                }
+            self._dispatch_dirty = True
+            return self._job_row(
+                js,
+                self._job_ready_counts().get(job_bin, 0),
+                self._admission_order(),
+            )
+        if op == "hung_get_digest":
+            return self.hung_get_digest(list(args[0]))
+        if op == "list_incidents":
+            # alerting plane: bounded incident summaries, newest first,
+            # state/kind filters pushed server-side
+            if self._incident_mgr is None:
+                return []
+            limit = args[0] if args and isinstance(args[0], int) else None
+            state = args[1] if len(args) > 1 else None
+            kind = args[2] if len(args) > 2 else None
+            return self._incident_mgr.list_incidents(limit, state, kind)
+        if op == "incident":
+            # one incident's full record incl. the cross-plane digest
+            # (re-joined live for open incidents)
+            if self._incident_mgr is None:
+                return None
+            return self._incident_mgr.get(str(args[0]))
+        if op == "list_slos":
+            return (
+                [] if self._incident_mgr is None
+                else self._incident_mgr.list_slos()
+            )
+        if op == "register_slo":
+            if self._incident_mgr is None:
+                raise ValueError("incident plane disabled")
+            return self._incident_mgr.register_slo(dict(args[0]))
+        if op == "remove_slo":
+            if self._incident_mgr is None:
+                return False
+            return self._incident_mgr.remove_slo(str(args[0]))
+        if op == "doctor":
+            # one-shot cluster health digest (`ray_tpu_torch doctor`)
+            if self._incident_mgr is None:
+                return {"healthy": None, "open_incidents": [], "slos": [],
+                        "error": "incident plane disabled"}
+            return self._incident_mgr.doctor_digest()
+        raise ValueError(f"unknown rpc {op}")
+
+    @staticmethod
+    def _apply_limit(rows: List[dict], args) -> List[dict]:
+        """Server-side result cap for the state listers: the client pushes
+        its ``limit`` into the RPC so a 10k-task cluster doesn't serialize
+        10k rows for a LIMIT 10 query."""
+        limit = args[0] if args and isinstance(args[0], int) else None
+        return rows if limit is None else rows[:limit]
+
+    # ---- misc ------------------------------------------------------------
+
+    def _apply_ref_op(
+        self, op: int, oid: ObjectID, holder=None, token: bytes = None
+    ) -> None:
+        """One ref-count mutation. The single body behind add_ref /
+        remove_ref / transit pins / ref_batch so semantics can't diverge
+        between the single and batched paths.
+
+        ops: 1 = add borrow, -1 = remove borrow, 2 = transit pin (token),
+        3 = transit release (token).
+
+        Acknowledged handoff (parity: the borrower protocol of
+        ``reference_count.h:61``): serializing a ref takes a token pin (2);
+        the FIRST deserialization registers its own borrow and then releases
+        the token (3) — ordered after its add on the same channel, so the
+        count never dips mid-handoff. No TTL cliff: a blob parked in a queue
+        for minutes stays pinned until consumed. A release can outrun its
+        pin on paths that bypass the scheduler (compiled-DAG channels);
+        ``_early_released`` makes the pair commute. The hour-scale backstop
+        only collects pins whose blob was dropped unconsumed (a leak bound,
+        not a correctness mechanism).
+
+        ``holder`` attributes borrows to a worker so a crashed borrower's
+        refs are released by ``_on_worker_death`` instead of leaking.
+        """
+        self._refop_count += 1
+        if op in (2, 3):
+            # a transit token is by definition a second channel in flight
+            self._cross_channel.add(oid)
+        elif oid not in self._cross_channel:
+            # Ops on ONE ordered channel (the owner's — a worker conn, or
+            # the driver's in-process queue) cannot race themselves: every
+            # add precedes its remove, so a zero is definitive and frees
+            # immediately. Only traffic from a SECOND channel (another
+            # worker borrowing, converging escalations) makes a transient
+            # zero possible and must ride the grace window. Keying on the
+            # FIRST channel seen — instead of "any worker at all" — is what
+            # lets a worker's own put/del churn free as fast as the
+            # driver's: the 2 s grace was capping every multi-client put
+            # loop at arena_capacity/grace_window bytes/s of throughput.
+            first = self._ref_channel.setdefault(oid, holder)
+            if first != holder:
+                self._cross_channel.add(oid)
+        if op == -1:
+            if holder is not None:
+                held = self._holder_refs.get(holder)
+                if held is not None:
+                    held[oid] -= 1
+                    if held[oid] <= 0:
+                        del held[oid]
+                    if not held:
+                        del self._holder_refs[holder]
+            self._unpin([oid])
+            return
+        if op == 1:
+            self._ref_counts[oid] += 1
+            if holder is not None:
+                held = self._holder_refs.setdefault(holder, {})
+                held[oid] = held.get(oid, 0) + 1
+            return
+        if op == 2:
+            if token in self._early_released:
+                self._early_released.discard(token)
+                return
+            self._ref_counts[oid] += 1
+            self._transit_tokens[token] = oid
+            self._transit_pins.append(
+                (
+                    time.monotonic() + self.config.transit_pin_backstop_s,
+                    token,
+                )
+            )
+            return
+        if op == 3:
+            if self._transit_tokens.pop(token, None) is not None:
+                self._unpin([oid])
+                self._maybe_compact_transit_pins()
+            else:
+                # seconds-scale expiry: an early release only needs to
+                # outlive the pin racing in behind it, and the common case
+                # (repeat deserialization of an already-acked blob) would
+                # otherwise grow this set at handoff rate for the full
+                # backstop hour
+                self._early_released.add(token)
+                # separate deque: its 60 s deadlines would break the pin
+                # deque's monotone-deadline sweep
+                self._early_release_expiry.append(
+                    (time.monotonic() + 60.0, token)
+                )
+
+    def _maybe_compact_transit_pins(self) -> None:
+        """Released pins leave dead (expiry, token) entries in the deque
+        until their backstop; rebuild occasionally so sustained handoff
+        traffic stays O(live pins), not O(rate x backstop)."""
+        live = len(self._transit_tokens)
+        if len(self._transit_pins) > 4 * live + 1024:
+            self._transit_pins = collections.deque(
+                e for e in self._transit_pins if e[1] in self._transit_tokens
+            )
+
+    def _maybe_free(self, oid: ObjectID):
+        """Refcount hit zero: free now, or after a short grace window.
+
+        Ref traffic converges on the head from independent channels (caller
+        pipes, the direct-actor escalation path, completion unpins), so a
+        count can transiently touch zero before a (+) already in flight
+        lands — e.g. a dep-resolved task completing (unpin) before its arg's
+        ownership-escalation transfer is processed. Freeing on the transient
+        zero deletes a live object; the grace window lets stragglers arrive
+        (parity: the reference tolerates the same lag via owner-side
+        deletion — only the owner decides an object is out of scope).
+
+        The window only applies to oids whose ref ops ever arrived from more
+        than the owner's single ordered channel (``_cross_channel``: worker
+        borrows, transit pins, escalations, task args). A put/del that never
+        left its owner cannot have a straggler — its zero is definitive, and
+        deferring it lets high-churn loops (put; del; repeat) overflow the
+        arena into LRU spill while dead objects wait out their grace."""
+        if oid not in self._cross_channel:
+            self._free_object(oid)
+            return
+        self._deferred_frees.append((time.monotonic() + 2.0, oid))
+
+    def _sweep_deferred_frees(self) -> None:
+        now = time.monotonic()
+        while self._deferred_frees and self._deferred_frees[0][0] <= now:
+            _, oid = self._deferred_frees.popleft()
+            if self._ref_counts.get(oid, 0) <= 0:
+                self._free_object(oid)
+
+    def _free_object(self, oid: ObjectID):
+        self._cross_channel.discard(oid)
+        self._ref_channel.pop(oid, None)
+        self._obj_prov.pop(oid.hex(), None)
+        self._obj_class.pop(oid.hex(), None)
+        freed = self._object_sizes.pop(oid, None)
+        if freed:
+            # uncharge the owning job's object-store-bytes ledger
+            js = self._jobs.get(oid.binary()[20:24])
+            if js is not None:
+                js.object_bytes = max(0, js.object_bytes - freed)
+        self.memory_store.evict(oid)
+        store = self._node.store_client
+        if store is not None and store.contains(oid):
+            store.delete(oid)
+        self._object_locations.pop(oid, None)
+
+    def node_stats(self) -> Dict[str, dict]:
+        """The head's reporter metrics, collected on demand (its virtual
+        nodes share its process and store)."""
+        from ray_tpu_torch._private.reporter import StatsCollector
+
+        collector = getattr(self, "_head_stats_collector", None)
+        if collector is None:
+            collector = self._head_stats_collector = StatsCollector()
+        head_workers = sum(
+            1
+            for w in self.workers.values()
+            if w.node_id == self._node.head_node_id and w.state != "dead"
+        )
+        stats = collector.collect(
+            store=self._node.store_client,
+            extra={"workers": head_workers, "pid": os.getpid()},
+        )
+        return {self._node.head_node_id.hex(): {"node": "head", **stats}}
+
+    def _record_event(
+        self, spec: TaskSpec, state: str, ts: float = None, stages: dict = None
+    ):
+        if not getattr(self.config, "telemetry_enabled", True):
+            return
+        ev = {
+            "task_id": spec.task_id.hex(),
+            "name": spec.name,
+            "type": spec.task_type.name,
+            "state": state,
+            "time": ts if ts is not None else time.time(),
+            "actor_id": spec.actor_id.hex() if spec.actor_id else None,
+        }
+        if stages:
+            # head-attached stage decomposition (e.g. the actor-creation
+            # placement/worker_spawn split on DISPATCHED): build_trace
+            # merges event stage dicts from any source into the span
+            ev["stages"] = stages
+        t = getattr(spec, "trace_ctx", None)
+        if t is not None:
+            # head-side half of the task's span (the worker records the
+            # execution half under the SAME span id — minted at submission)
+            ev["trace_id"], ev["span_id"] = t[0], t[1]
+            if len(t) > 2 and t[2]:
+                ev["parent_id"] = t[2]
+            if state == "SUBMITTED":
+                # index maintenance only on the submission anchor: this
+                # runs on the scheduler loop for EVERY lifecycle event, and
+                # the small-task overhead budget (ratio <= 1.05) is paid
+                # exactly here
+                self._trace_note(t[0], ev)
+        if state == "FINISHED":
+            # per-job sliding-window latency (p50/p95/p99 + exemplars):
+            # end-to-end submit -> finish, exemplar = the task's trace id
+            rec = self.tasks.get(spec.task_id)
+            if rec is not None:
+                job = spec.task_id.job_id().hex()
+                win = self._job_latency.get(job)
+                if win is None:
+                    from ray_tpu_torch._private.telemetry import LatencyWindow
+
+                    win = self._job_latency[job] = LatencyWindow(
+                        window_s=float(
+                            getattr(self.config, "latency_window_s", 60.0)
+                        )
+                    )
+                win.observe(
+                    (time.monotonic() - rec.submit_time) * 1e3,
+                    t[0] if t is not None else None,
+                )
+        self._task_events.append(ev)
+
+    def _trace_note(self, trace_id: str, ev: dict) -> None:
+        """Maintain the bounded recent-trace index: trace_id -> digest with
+        the first-seen (root-most) event name, for `ray_tpu_torch trace --list`
+        and latency exemplar lookups."""
+        idx = self._trace_index
+        entry = idx.get(trace_id)
+        if entry is None:
+            if len(idx) >= int(
+                getattr(self.config, "trace_index_max", 4096) or 4096
+            ):
+                idx.popitem(last=False)  # drop the oldest trace
+            idx[trace_id] = {
+                "trace_id": trace_id,
+                "first_time": ev.get("time"),
+                "last_time": ev.get("time"),
+                "root": ev.get("name"),
+                "events": 1,
+            }
+            return
+        entry["events"] += 1
+        t = ev.get("time") or 0
+        if t > (entry["last_time"] or 0):
+            entry["last_time"] = t
+        if t and t < (entry["first_time"] or t + 1):
+            entry["first_time"] = t
+            entry["root"] = ev.get("name")
+
+    def task_events(self) -> List[dict]:
+        return list(self._task_events)
+
+    # ---- failure forensics (cluster events, logs, watchdogs) -------------
+
+    def record_cluster_event(
+        self,
+        type: str,
+        message: str,
+        severity: str = "INFO",
+        source: str = "SCHEDULER",
+        **extra,
+    ) -> None:
+        """Append one structured cluster event (parity: the reference's
+        exported event stream / event.proto). Lock-guarded, so it is safe
+        from any thread (loop, memory monitor, watchdog rpcs); readers go
+        through the loop rpc."""
+        if not getattr(self.config, "telemetry_enabled", True):
+            return
+        ev = {
+            "time": time.time(),
+            "severity": severity,
+            "source": source,
+            "type": type,
+            "message": message,
+        }
+        ev.update(extra)
+        self._ingest_cluster_event(ev)
+
+    def _ingest_cluster_event(self, ev: dict) -> None:
+        etype = ev.get("type", "UNKNOWN")
+        with self._cluster_event_lock:
+            self._cluster_event_seq += 1
+            ev.setdefault("event_id", self._cluster_event_seq)
+            self._cluster_event_counts[etype] = (
+                self._cluster_event_counts.get(etype, 0) + 1
+            )
+            self._cluster_events.append(ev)
+        # incident-plane trigger intake: a bounded any-thread enqueue (the
+        # heavy join happens on the loop's 1 Hz incident scan)
+        if self._incident_mgr is not None:
+            try:
+                self._incident_mgr.note_event(ev)
+            except Exception:
+                pass
+        if ev.get("severity") == "ERROR":
+            logger.warning(
+                "cluster event %s: %s", etype, ev.get("message", "")
+            )
+
+    def _note_task_runtime(self, rec: TaskRecord) -> None:
+        """Feed the straggler watchdog's per-function runtime history."""
+        if rec.start_time is None or rec.end_time is None:
+            return
+        name = rec.spec.name or "unnamed"
+        hist = self._func_runtimes.get(name)
+        if hist is None:
+            hist = self._func_runtimes[name] = collections.deque(maxlen=64)
+        hist.append(rec.end_time - rec.start_time)
+
+    def _record_task_retry(self, rec: TaskRecord, why: str) -> None:
+        self.record_cluster_event(
+            "TASK_RETRY",
+            f"task {rec.spec.name or rec.spec.task_id.hex()[:16]} retrying "
+            f"({why}); {rec.retries_left} retries left",
+            severity="WARNING",
+            task_id=rec.spec.task_id.hex(),
+            name=rec.spec.name,
+            attempt=rec.attempt,
+            retries_left=rec.retries_left,
+            reason=why,
+        )
+
+    def _note_task_error(
+        self, rec: TaskRecord, entry: Tuple, w=None, node_hint=None
+    ) -> None:
+        """An application error committed for this task: extract provenance
+        (error type, node, pid, attempt) into the TaskRecord and the event
+        log. Unpickles the error blob — errors are rare, so the cost is
+        paid off the hot path."""
+        err_type = "Exception"
+        err_pid = None
+        err_node = None
+        try:
+            err = pickle.loads(entry[1])
+            cause = getattr(err, "cause", None)
+            err_type = type(cause).__name__ if cause is not None else type(err).__name__
+            err_pid = getattr(err, "pid", None)
+            err_node = getattr(err, "node_id", None)
+        except Exception:
+            pass
+        rec.error_type = err_type
+        rec.error_pid = err_pid if err_pid is not None else (
+            w.proc.pid if w is not None and w.proc is not None else None
+        )
+        # node provenance: scheduler-known node ids first, then the error's
+        # own record (host string).
+        if w is not None:
+            rec.error_node = w.node_id.hex()
+        elif node_hint is not None:
+            rec.error_node = node_hint
+        elif err_node is not None:
+            rec.error_node = str(err_node)
+        self.record_cluster_event(
+            "TASK_FAILED",
+            f"task {rec.spec.name or rec.spec.task_id.hex()[:16]} failed: "
+            f"{err_type}",
+            severity="ERROR",
+            task_id=rec.spec.task_id.hex(),
+            name=rec.spec.name,
+            error_type=err_type,
+            attempt=rec.attempt,
+            node_id=rec.error_node,
+            pid=rec.error_pid,
+        )
+
+    def _maybe_detect_stragglers(self) -> None:
+        """Flag RUNNING tasks exceeding factor x p95 of their function's
+        completed runtimes as WARN events + ray_tpu_torch_stragglers_total
+        (parity role: the reference's slow-task/lineage debugging signals;
+        runs on the loop, rate-limited to 1 Hz)."""
+        cfg = self.config
+        factor = getattr(cfg, "straggler_detect_factor", 0.0)
+        if not factor or not getattr(cfg, "telemetry_enabled", True):
+            # dispatch still feeds _running_watch unconditionally; without
+            # the scan's lazy pruning it would grow one id per task ever run
+            if self._running_watch:
+                self._running_watch.clear()
+            return
+        now = time.monotonic()
+        if now - self._last_straggler_scan < 1.0:
+            return
+        self._last_straggler_scan = now
+        min_samples = getattr(cfg, "straggler_min_samples", 5)
+        min_runtime = getattr(cfg, "straggler_min_runtime_s", 5.0)
+        for tid in list(self._running_watch):
+            rec = self.tasks.get(tid)
+            if rec is None or rec.state != "RUNNING" or rec.start_time is None:
+                self._running_watch.discard(tid)  # settled since: lazy prune
+                continue
+            key = (rec.spec.task_id, rec.attempt)
+            if key in self._straggler_dedup:
+                continue
+            hist = self._func_runtimes.get(rec.spec.name or "unnamed")
+            if hist is None or len(hist) < min_samples:
+                continue
+            ordered = sorted(hist)
+            p95 = ordered[min(len(ordered) - 1, int(0.95 * len(ordered)))]
+            threshold = max(factor * p95, min_runtime)
+            elapsed = now - rec.start_time
+            if elapsed <= threshold:
+                continue
+            self._straggler_dedup.mark(key, now)
+            self._straggler_count += 1
+            w = self.workers.get(rec.worker_id) if rec.worker_id else None
+            self.record_cluster_event(
+                "STRAGGLER",
+                f"task {rec.spec.name or rec.spec.task_id.hex()[:16]} running "
+                f"{elapsed:.1f}s, {elapsed / p95 if p95 > 0 else 0:.0f}x its "
+                f"p95 of {p95:.3f}s",
+                severity="WARNING",
+                task_id=rec.spec.task_id.hex(),
+                name=rec.spec.name,
+                attempt=rec.attempt,
+                elapsed_s=round(elapsed, 3),
+                p95_s=round(p95, 4),
+                node_id=w.node_id.hex() if w is not None else None,
+                pid=w.proc.pid if w is not None and w.proc is not None else None,
+            )
+        # flagged entries for settled tasks can't fire again; prune so the
+        # gate tracks live suspicion, not history
+        self._straggler_dedup.prune(
+            keep=lambda k: k[0] in self._running_watch, now=now, over=256
+        )
+
+    def _maybe_launch_scan(self) -> None:
+        """Launch watchdog: an actor creation stuck in ONE lifecycle stage
+        past actor_launch_warn_s gets an ACTOR_LAUNCH_STALLED event (stage,
+        node, runtime_env digest, trace id) — once per (actor, stage); runs
+        on the loop, rate-limited to 1 Hz."""
+        warn_s = float(getattr(self.config, "actor_launch_warn_s", 30.0) or 0.0)
+        if not warn_s or not self._launch_obs_on():
+            return
+        now = time.monotonic()
+        if now - self._last_launch_scan < 1.0:
+            return
+        self._last_launch_scan = now
+        wall = time.time()
+        for actor in self.actors.values():
+            if actor.state != "PENDING" or not actor.stage_ts:
+                continue
+            stage = actor.launch_stage
+            since = actor.stage_ts.get(stage)
+            if since is None or wall - since <= warn_s:
+                continue
+            key = (actor.actor_id.hex(), stage)
+            if key in self._launch_dedup:
+                continue
+            self._launch_dedup.mark(key)
+            self._launch_stalled_total += 1
+            spec = actor.creation_spec
+            w = self.workers.get(actor.worker_id) if actor.worker_id else None
+            env = spec.runtime_env if spec is not None else None
+            env_digest = (
+                hashlib.sha1(repr(env).encode()).hexdigest()[:12] if env else None
+            )
+            self.record_cluster_event(
+                "ACTOR_LAUNCH_STALLED",
+                f"actor {(spec.name if spec else None) or actor.actor_id.hex()[:12]} "
+                f"stuck in stage '{stage}' for {wall - since:.1f}s",
+                severity="WARNING",
+                actor_id=actor.actor_id.hex(),
+                name=spec.name if spec else None,
+                stage=stage,
+                stalled_s=round(wall - since, 1),
+                node_id=w.node_id.hex() if w is not None else None,
+                runtime_env_digest=env_digest,
+                trace_id=actor.launch_trace,
+            )
+        if len(self._launch_dedup) > 256:
+            live = {
+                a.actor_id.hex()
+                for a in self.actors.values()
+                if a.state == "PENDING"
+            }
+            self._launch_dedup.prune(keep=lambda kf: kf[0] in live)
+
+    def _maybe_incident_scan(self) -> None:
+        """Alerting plane: 1 Hz SLO burn-rate evaluation + incident
+        open/merge/close with cross-plane digest assembly.  Runs ON the
+        loop inside the existing maintenance pass, so every plane read
+        (latency windows, link ledger, step index, provenance) is
+        race-free; trigger events arrive through the bounded note_event
+        queue."""
+        if self._incident_mgr is None:
+            return
+        now = time.monotonic()
+        if now - self._last_incident_scan < 1.0:
+            return
+        self._last_incident_scan = now
+        self._incident_mgr.scan()
+
+    def hung_get_digest(self, oid_hexes: List[str]) -> str:
+        """Forensic digest for a blocked get(): each pending object's
+        producing task chain with states/workers (driver watchdog; runs on
+        the loop via local_rpc). Also records a HUNG_GET event."""
+        lines = []
+        for oh in oid_hexes[:16]:
+            try:
+                oid = ObjectID(bytes.fromhex(oh))
+            except ValueError:
+                continue
+            rec = self.tasks.get(oid.task_id())
+            chain = []
+            depth = 0
+            while rec is not None and depth < 8:
+                w = self.workers.get(rec.worker_id) if rec.worker_id else None
+                loc = ""
+                if w is not None:
+                    pid = w.proc.pid if w.proc is not None else None
+                    loc = f" worker={w.worker_id.hex()[:8]} pid={pid}"
+                chain.append(
+                    f"{rec.spec.name or rec.spec.task_id.hex()[:12]}"
+                    f" [{rec.state}{loc} attempt={rec.attempt}]"
+                )
+                # follow the first unresolved ref arg to its producer
+                nxt = None
+                for dep in rec.unresolved_deps:
+                    nxt = self.tasks.get(dep.task_id())
+                    if nxt is not None:
+                        break
+                rec = nxt
+                depth += 1
+            if chain:
+                lines.append(f"  {oh[:16]}: " + " <- ".join(chain))
+            else:
+                lines.append(f"  {oh[:16]}: no producing task known (lost put?)")
+        states: Dict[str, int] = {}
+        for t in self.tasks.values():
+            states[t.state] = states.get(t.state, 0) + 1
+        summary = ", ".join(f"{k}={v}" for k, v in sorted(states.items()))
+        digest = (
+            f"get() blocked on {len(oid_hexes)} objects; cluster tasks: "
+            f"{summary}\n" + "\n".join(lines)
+        )
+        self.record_cluster_event(
+            "HUNG_GET",
+            f"driver get() blocked on {len(oid_hexes)} objects",
+            severity="WARNING",
+            source="DRIVER",
+            objects=[o[:16] for o in oid_hexes[:16]],
+        )
+        return digest
+
+    # ---- worker log persistence (the reference log_monitor role) ---------
+
+    def _handle_log_record(self, rec: dict, holder=None) -> None:
+        self._handle_log_batch([rec], holder)
+
+    def _handle_log_batch(self, recs: List[dict], holder=None) -> None:
+        """A batch of structured worker log lines: echo to the driver's
+        streams (log_to_driver) and persist under <session>/logs. Writes
+        are coalesced — one stream write + flush and one file write per
+        (destination, batch), not per line — so a print-heavy task loop
+        costs syscalls proportional to batches, not lines."""
+        echo: Dict[str, List[str]] = {}
+        persist = getattr(self.config, "persist_worker_logs", True)
+        to_driver = self.config.log_to_driver
+        files: Dict[str, List[str]] = {}
+        for rec in recs:
+            line = rec.get("line", "")
+            pid = rec.get("pid")
+            if to_driver:
+                name = rec.get("task_name")
+                if not name and rec.get("task_id"):
+                    try:
+                        trec = self.tasks.get(
+                            TaskID(bytes.fromhex(rec["task_id"]))
+                        )
+                        if trec is not None:
+                            name = trec.spec.name
+                    except (ValueError, KeyError):
+                        name = None
+                echo.setdefault(rec.get("stream") or "stdout", []).append(
+                    f"({name or 'worker'} pid={pid}) {line}\n"
+                )
+            if persist:
+                ext = "err" if rec.get("stream") == "stderr" else "out"
+                who = holder.hex()[:8] if holder is not None else "driver"
+                ts = rec.get("time") or time.time()
+                stamp = time.strftime(
+                    "%Y-%m-%d %H:%M:%S", time.localtime(ts)
+                )
+                files.setdefault(f"worker-{who}-{pid}.{ext}", []).append(
+                    f"[{stamp}.{int((ts % 1) * 1000):03d} "
+                    f"{(rec.get('sev') or 'INFO')[0]} "
+                    f"task={rec.get('task_id') or '-'} "
+                    f"actor={rec.get('actor_id') or '-'} "
+                    f"job={rec.get('job_id') or '-'}] {line}\n"
+                )
+        for stream, lines in echo.items():
+            try:
+                import sys as _sys
+
+                out = _sys.stderr if stream == "stderr" else _sys.stdout
+                out.write("".join(lines))
+                out.flush()
+            except Exception:
+                pass
+        for fname, lines in files.items():
+            try:
+                self._log_file_for(fname).write("".join(lines))
+            except Exception:
+                pass
+
+    def _log_file_for(self, fname: str):
+        fh = self._log_files.get(fname)
+        if fh is None:
+            if len(self._log_files) >= 128:  # bound open handles: evict the
+                # OLDEST entry (popitem() would pop the newest and churn the
+                # hottest files while dead workers' handles stay pinned)
+                oldest = next(iter(self._log_files))
+                try:
+                    self._log_files.pop(oldest).close()
+                except OSError:
+                    pass
+            path = os.path.join(self._node.session_dir, "logs", fname)
+            fh = self._log_files[fname] = open(path, "a", buffering=1)
+        return fh
+
+    def _close_log_files(self) -> None:
+        for fh in self._log_files.values():
+            try:
+                fh.close()
+            except OSError:
+                pass
+        self._log_files.clear()
+
+    # ---- telemetry plane (TelemetryBuffer ingestion + cluster flush) -----
+
+    def _append_profile_span(self, span: dict, pid=None) -> None:
+        extra = span.get("extra", {})
+        ev = {
+            "task_id": span.get("task_id"),
+            "name": span.get("event", "span"),
+            "type": "PROFILE",
+            "state": "PROFILE",
+            "time": span.get("start", time.time()),
+            "end_time": span.get("end"),
+            "duration_ms": span.get("duration_ms"),
+            "pid": span.get("pid", pid),
+            "extra": extra,
+            "actor_id": None,
+        }
+        tid = extra.get("trace_id")
+        if tid:
+            # serve proxy/handle spans and user profile() sections join the
+            # trace index alongside task lifecycle events
+            ev["trace_id"] = tid
+            ev["span_id"] = extra.get("span_id")
+            if extra.get("parent_id"):
+                ev["parent_id"] = extra["parent_id"]
+            self._trace_note(tid, ev)
+        self._task_events.append(ev)
+
+    def _ingest_telemetry(self, batch: dict, holder=None) -> None:
+        """Merge one process's flushed batch: lifecycle events and spans
+        join the task-event log, metric snapshots aggregate into the KV,
+        dropped counts accumulate (explicit loss accounting)."""
+        pid = batch.get("pid")
+        # unique process key: pids repeat across nodes (and in containers),
+        # so worker-relayed batches key on the cluster-unique worker id
+        proc = (holder.hex() if holder is not None else "driver", pid)
+        self._telemetry_batches += 1
+        events = batch.get("events") or ()
+        spans = batch.get("spans") or ()
+        self._telemetry_events += len(events) + len(spans)
+        for ev in events:
+            tid = ev.get("trace_id")
+            if tid and ev.get("state") == "SUBMITTED":
+                # caller-side submission anchors (the only submission
+                # record for direct actor calls) keep the index current;
+                # per-event noting is skipped — loop budget (see
+                # _record_event)
+                self._trace_note(tid, ev)
+            if (
+                ev.get("type") == "ACTOR_CREATION"
+                and ev.get("state") == "FINISHED"
+                and ev.get("stages")
+            ):
+                # worker-side creation stages (runtime_env_ms /
+                # actor_class_load_ms) arrive one flush interval after the
+                # head settled the creation: late-merge into the profile
+                try:
+                    self._merge_creation_worker_stages(ev)
+                except Exception:
+                    logger.exception("creation stage merge failed")
+            elif (
+                ev.get("type") == "ACTOR_TASK"
+                and ev.get("state") == "FINISHED"
+                and ev.get("actor_id")
+            ):
+                # direct actor calls never touch the head: the worker's
+                # FINISHED event is the only signal for the first_method
+                # launch boundary
+                try:
+                    actor = self.actors.get(ActorID.from_hex(ev["actor_id"]))
+                except (ValueError, TypeError):
+                    actor = None
+                if actor is not None and actor.first_method_ts is None:
+                    actor.first_method_ts = float(
+                        ev.get("time") or time.time()
+                    )
+            self._task_events.append(ev)
+        for span in spans:
+            self._append_profile_span(span, pid=pid)
+        for key, n in batch.get("samples") or ():
+            key = tuple(key)
+            cur = self._profile_samples.get(key)
+            if cur is None and len(self._profile_samples) >= int(
+                getattr(self.config, "profiler_max_stacks", 20_000) or 20_000
+            ):
+                self._profile_samples_dropped += n
+                continue
+            self._profile_samples[key] = (cur or 0) + n
+        logs = batch.get("logs")
+        if logs:
+            try:
+                self._handle_log_batch(logs, holder=holder)
+            except Exception:
+                logger.exception("log record handling failed")
+        for cev in batch.get("cluster_events") or ():
+            self._ingest_cluster_event(dict(cev))
+        for orec in batch.get("objects") or ():
+            try:
+                self._ingest_object_record(orec)
+            except Exception:
+                logger.exception("object provenance record ingest failed")
+        for srec in batch.get("train_steps") or ():
+            try:
+                self._train_index.ingest(srec)
+            except Exception:
+                logger.exception("train step record ingest failed")
+        for trec in batch.get("transfers") or ():
+            try:
+                self._ingest_transfer_record(trec, holder=holder)
+            except Exception:
+                logger.exception("transfer read record ingest failed")
+        for name, (kind, description, data) in (batch.get("metrics") or {}).items():
+            try:
+                self._merge_metric(name, kind, description, data, proc)
+            except Exception:
+                logger.exception("metric merge failed for %r", name)
+        self._telemetry_dropped += int(batch.get("dropped") or 0)
+
+    def _merge_metric(self, name, kind, description, data, proc) -> None:
+        """Aggregate per-process snapshots into one series (parity: the
+        metrics agent summing worker exports): counters and histograms sum
+        across processes, gauges take the latest writer per label set."""
+        entry = self._metric_procs.setdefault(
+            name, {"kind": kind, "description": description, "per_proc": {}}
+        )
+        entry["kind"] = kind
+        entry["description"] = description
+        entry["per_proc"][proc] = data
+        merged: dict = {}
+        if kind == "counter":
+            for proc_data in entry["per_proc"].values():
+                for key, val in proc_data.items():
+                    merged[key] = merged.get(key, 0.0) + val
+        elif kind == "histogram":
+            for proc_data in entry["per_proc"].values():
+                for key, val in proc_data.items():
+                    cur = merged.get(key)
+                    if (
+                        cur is None
+                        or not isinstance(val, dict)
+                        or len(cur.get("buckets", ())) != len(val.get("buckets", ()))
+                    ):
+                        merged[key] = json.loads(json.dumps(val))
+                    else:
+                        cur["count"] += val["count"]
+                        cur["sum"] += val["sum"]
+                        cur["buckets"] = [
+                            a + b for a, b in zip(cur["buckets"], val["buckets"])
+                        ]
+        else:  # gauge / untyped: most recent process wins per label set
+            for proc_data in entry["per_proc"].values():
+                for key, val in proc_data.items():
+                    merged.setdefault(key, val)
+            merged.update(data)
+        blob = json.dumps(
+            {"kind": kind, "description": description, "data": merged}
+        ).encode()
+        self.gcs.kv_put("metrics", name.encode(), blob, True)
+
+    # ---- memory observability plane ------------------------------------
+
+    def _ingest_object_record(self, rec) -> None:
+        """Merge one allocation-provenance tuple ``(oid_bin, size, kind,
+        callsite, trace_id, t)`` (memory plane) into the bounded index.
+        The creating task/job ids are decoded from the oid itself;
+        overflow beyond ``object_provenance_max`` is counted, never
+        silent."""
+        try:
+            oid_bin, size, kind, cs, trace, t = rec
+        except (TypeError, ValueError):
+            return
+        if not isinstance(oid_bin, bytes) or len(oid_bin) != ObjectID.SIZE:
+            return
+        oid = ObjectID(oid_bin)
+        # dead on arrival: under put/del churn a record lands up to one
+        # flush interval AFTER its object was freed (the free rides the
+        # owner's channel, the record rides the batch). Indexing those
+        # would grow the table at churn-rate x flush-interval and make the
+        # 1 Hz scan O(dead) — the commit always precedes the record on the
+        # same FIFO pipe, so "not live here" means "already freed", never
+        # "not yet known"
+        if not self._object_is_live(oid):
+            return
+        key = oid.hex()
+        cap = int(getattr(self.config, "object_provenance_max", 50_000) or 50_000)
+        if key not in self._obj_prov and len(self._obj_prov) >= cap:
+            self._prov_dropped += 1
+            return
+        size = int(size or 0)
+        self._obj_prov[key] = {
+            "oid": oid,
+            "cs": str(cs or "<unknown>"),
+            "kind": str(kind or "put"),
+            "size": size,
+            "trace": trace,
+            "t": float(t or time.time()),
+            "job": oid_bin[20:24].hex(),
+            "task": oid_bin[:24].hex(),
+        }
+        # sizes learned here also feed the locality scorer and the per-job
+        # object_store_bytes quota ledger (stored RETURNS previously had no
+        # size head-side) — but only for live objects, so a record racing
+        # its own free can't re-charge a dead oid
+        if size and oid not in self._object_sizes and self._object_is_live(oid):
+            self._note_object_size(oid, size)
+
+    def _ingest_put_prov(self, oid: ObjectID, size: int, prov) -> None:
+        """Provenance that rode a put's own registration message
+        (``put_done`` / ``submit_put``): ``(callsite, trace_id, t)``.
+        Same bounded index as the telemetry-batch path."""
+        key = oid.hex()
+        cap = int(getattr(self.config, "object_provenance_max", 50_000) or 50_000)
+        if key not in self._obj_prov and len(self._obj_prov) >= cap:
+            self._prov_dropped += 1
+            return
+        cs, trace, t = prov
+        oid_bin = oid.binary()
+        self._obj_prov[key] = {
+            "oid": oid,
+            "cs": cs or "<unknown>",
+            "kind": "put",
+            "size": size,
+            "trace": trace,
+            "t": t,
+            "job": oid_bin[20:24].hex(),
+            "task": oid_bin[:24].hex(),
+        }
+
+    def _object_is_live(self, oid: ObjectID) -> bool:
+        return (
+            self.memory_store.contains(oid)
+            or oid in self._ref_counts
+            or oid in self._object_sizes
+        )
+
+    def _maybe_memory_scan(self) -> None:
+        if not getattr(self.config, "memory_plane_enabled", True):
+            return
+        interval = float(
+            getattr(self.config, "leak_watchdog_interval_s", 1.0) or 1.0
+        )
+        now = time.monotonic()
+        if now - self._last_memscan < interval:
+            return
+        self._last_memscan = now
+        self._memory_watchdog_scan()
+
+    def _memory_watchdog_scan(self) -> None:
+        """One watchdog pass: prune stale provenance, join the ownership
+        table against live workers/jobs to classify every tracked object,
+        and flag callsites whose live footprint grew monotonically across
+        the sliding window (``OBJECT_LEAK_SUSPECT`` cluster events with
+        exemplar oids)."""
+        now_w = time.time()
+        stale = [
+            k
+            for k, rec in self._obj_prov.items()
+            if now_w - rec["t"] > 10.0 and not self._object_is_live(rec["oid"])
+        ]
+        for k in stale:
+            del self._obj_prov[k]
+            self._obj_class.pop(k, None)
+        # ref-holder join: oid hex -> holder WorkerStates (the borrower
+        # attribution table keyed back onto tracked objects)
+        oid_key = {rec["oid"]: k for k, rec in self._obj_prov.items()}
+        holders_by_key: Dict[str, List[WorkerState]] = {}
+        for holder, held in list(self._holder_refs.items()):
+            w = self.workers.get(holder) if holder is not None else None
+            for oid in held:
+                k = oid_key.get(oid)
+                if k is not None:
+                    holders_by_key.setdefault(k, []).append(w)
+        # pass 1: live per-callsite footprint (leak detection input)
+        per_cs: Dict[str, List[int]] = {}
+        live_keys: List[str] = []
+        for k, rec in self._obj_prov.items():
+            if not self._object_is_live(rec["oid"]):
+                continue
+            live_keys.append(k)
+            agg = per_cs.setdefault(rec["cs"], [0, 0])
+            agg[0] += 1
+            agg[1] += rec["size"]
+        # sliding-window monotonic-growth detector, per callsite
+        window = max(2, int(getattr(self.config, "leak_watchdog_window", 8)))
+        min_bytes = int(
+            getattr(self.config, "leak_watchdog_min_growth_bytes", 1 << 20)
+        )
+        min_count = int(
+            getattr(self.config, "leak_watchdog_min_count_growth", 8)
+        )
+        interval = float(
+            getattr(self.config, "leak_watchdog_interval_s", 1.0) or 1.0
+        )
+        for cs in list(self._leak_history):
+            if cs not in per_cs:  # site fully freed: forget it
+                del self._leak_history[cs]
+                self._leak_suspects.pop(cs, None)
+        suspects: Dict[str, dict] = {}
+        for cs, (count, nbytes) in per_cs.items():
+            hist = self._leak_history.get(cs)
+            if hist is None:
+                hist = self._leak_history[cs] = collections.deque(
+                    maxlen=window
+                )
+            hist.append((count, nbytes))
+            if len(hist) < window:
+                continue
+            monotonic = all(
+                hist[i][0] <= hist[i + 1][0] and hist[i][1] <= hist[i + 1][1]
+                for i in range(len(hist) - 1)
+            )
+            grew = (
+                hist[-1][1] - hist[0][1] >= min_bytes
+                and hist[-1][0] - hist[0][0] >= min_count
+            )
+            if not (monotonic and grew):
+                self._leak_suspects.pop(cs, None)
+                continue
+            exemplars = [
+                k
+                for k, rec in self._obj_prov.items()
+                if rec["cs"] == cs and self._object_is_live(rec["oid"])
+            ][-3:]
+            jobs = sorted(
+                {
+                    self._obj_prov[k]["job"]
+                    for k in exemplars
+                    if k in self._obj_prov
+                }
+            )
+            info = {
+                "callsite": cs,
+                "live_count": count,
+                "live_bytes": nbytes,
+                "growth_bytes": hist[-1][1] - hist[0][1],
+                "growth_count": hist[-1][0] - hist[0][0],
+                "window_s": round(window * interval, 3),
+                "exemplar_object_ids": exemplars,
+                "jobs": jobs,
+                "first_flagged": self._leak_suspects.get(cs, {}).get(
+                    "first_flagged", now_w
+                ),
+            }
+            suspects[cs] = info
+            if self._leak_dedup.should_fire(cs, now_w):
+                self._leak_events_total += 1
+                self.record_cluster_event(
+                    "OBJECT_LEAK_SUSPECT",
+                    f"callsite {cs} grew monotonically to {count} live "
+                    f"objects / {nbytes} bytes over the last "
+                    f"{info['window_s']:g}s "
+                    f"(+{info['growth_bytes']} bytes)",
+                    severity="WARNING",
+                    **{k: v for k, v in info.items() if k != "first_flagged"},
+                )
+        self._leak_suspects = suspects
+        # pass 2: classification AFTER leak detection, so this scan's
+        # fresh suspects reclassify EVERY object of a flagged callsite
+        # (not just exemplars) and per-row class agrees with the
+        # ray_tpu_torch_objects_by_class split for the same instant
+        classes: Dict[str, str] = {}
+        class_counts: Dict[str, int] = {}
+        for k in live_keys:
+            rec = self._obj_prov.get(k)
+            if rec is None:
+                continue
+            cls = "IN_USE"
+            try:
+                job_bin = bytes.fromhex(rec["job"])
+            except ValueError:
+                job_bin = None
+            if job_bin is not None and job_bin not in self._jobs:
+                # the owning job's arbitration record is gone (terminated /
+                # GC'd) while the bytes are still held
+                cls = "PINNED_BY_DEAD_OWNER"
+            elif any(
+                w is not None and w.actor_id is not None
+                for w in holders_by_key.get(k) or ()
+            ):
+                cls = "CAPTURED_IN_ACTOR"
+            elif rec["cs"] in suspects:
+                cls = "LEAK_SUSPECT"
+            classes[k] = cls
+            class_counts[cls] = class_counts.get(cls, 0) + 1
+        self._obj_class = classes
+        self._obj_class_counts = class_counts
+        # arena high-water mark (sealed + in-flight creates)
+        store = self._node.store_client
+        if store is not None:
+            try:
+                st = store.usage_stats()
+                self._store_highwater = max(
+                    self._store_highwater,
+                    st["sealed_bytes"] + st["unsealed_bytes"],
+                )
+            except Exception:
+                pass
+
+    _LIST_OBJECTS_HARD_CAP = 10_000
+
+    @staticmethod
+    def _row_match(row: dict, filters) -> bool:
+        """Server-side filter predicate (the state-API pushdown
+        contract: ``=``/``!=`` raw, ordering operators numeric)."""
+        for key, op, value in filters or ():
+            have = row.get(key)
+            if op == "=":
+                if have != value:
+                    return False
+            elif op == "!=":
+                if have == value:
+                    return False
+            elif op in ("<", ">", "<=", ">="):
+                try:
+                    a, b = float(have), float(value)
+                except (TypeError, ValueError):
+                    return False
+                if op == "<" and not a < b:
+                    return False
+                if op == ">" and not a > b:
+                    return False
+                if op == "<=" and not a <= b:
+                    return False
+                if op == ">=" and not a >= b:
+                    return False
+            else:
+                raise ValueError(f"unsupported filter operator {op!r}")
+        return True
+
+    def _list_objects_rows(self, limit, filters) -> dict:
+        """Server-side ``list_objects``: provenance-enriched rows, filters
+        applied at the source, hard row cap with an explicit truncation
+        flag (a client-side 10k-row dump does not survive million-object
+        stores)."""
+        cap = self._LIST_OBJECTS_HARD_CAP
+        if isinstance(limit, int) and limit > 0:
+            cap = min(limit, cap)
+        now = time.time()
+        rows: List[dict] = []
+        matched = 0
+        seen: Set[str] = set()
+
+        def emit(row: dict) -> None:
+            nonlocal matched
+            if not self._row_match(row, filters):
+                return
+            matched += 1
+            if len(rows) < cap:
+                rows.append(row)
+
+        for key, rec in self._obj_prov.items():
+            oid = rec["oid"]
+            if not self._object_is_live(oid):
+                continue
+            seen.add(key)
+            emit(
+                {
+                    "object_id": key,
+                    "size_bytes": rec["size"],
+                    "ref_count": self._ref_counts.get(oid, 0),
+                    "callsite": rec["cs"],
+                    "kind": rec["kind"],
+                    "job": rec["job"],
+                    "task": rec["task"],
+                    "class": self._obj_class.get(key, "IN_USE"),
+                    "age_s": round(max(0.0, now - rec["t"]), 3),
+                    "trace_id": rec.get("trace"),
+                }
+            )
+        # objects the head knows about without provenance (plane toggled
+        # on mid-run, legacy clients): still listed, untracked callsite
+        for oid, size in list(self._object_sizes.items()):
+            key = oid.hex()
+            if key in seen:
+                continue
+            emit(
+                {
+                    "object_id": key,
+                    "size_bytes": size,
+                    "ref_count": self._ref_counts.get(oid, 0),
+                    "callsite": "<untracked>",
+                    "kind": "unknown",
+                    "job": oid.binary()[20:24].hex(),
+                    "task": oid.binary()[:24].hex(),
+                    "class": "IN_USE",
+                    "age_s": None,
+                    "trace_id": None,
+                }
+            )
+        return {"rows": rows, "truncated": matched > len(rows), "total": matched}
+
+    def _summarize_objects(self, group_by: str = "callsite", limit: int = 50) -> dict:
+        """Server-side grouping over the provenance index (parity: ``ray
+        memory --group-by``): one row per callsite / job / node with live
+        count+bytes, classification split, and exemplar object ids."""
+        if group_by not in ("callsite", "job", "node"):
+            raise ValueError(
+                f"summarize_objects group_by must be callsite|job|node, "
+                f"got {group_by!r}"
+            )
+        groups: Dict[str, dict] = {}
+        total_bytes = 0
+        total_objects = 0
+
+        def bucket(gk: str) -> dict:
+            g = groups.get(gk)
+            if g is None:
+                g = groups[gk] = {
+                    "group": gk,
+                    "count": 0,
+                    "bytes": 0,
+                    "classes": {},
+                    "callsites": {},
+                    "jobs": set(),
+                    "exemplars": [],
+                    "leak_suspect": False,
+                }
+            return g
+
+        seen: Set[ObjectID] = set()
+        for key, rec in self._obj_prov.items():
+            oid = rec["oid"]
+            if not self._object_is_live(oid):
+                continue
+            seen.add(oid)
+            if group_by == "callsite":
+                gk = rec["cs"]
+            elif group_by == "job":
+                gk = rec["job"]
+            else:
+                locs = self._object_locations.get(oid)
+                gk = next(iter(locs)).hex()[:12] if locs else "head"
+            g = bucket(gk)
+            g["count"] += 1
+            g["bytes"] += rec["size"]
+            cls = self._obj_class.get(key, "IN_USE")
+            g["classes"][cls] = g["classes"].get(cls, 0) + 1
+            cs_agg = g["callsites"].setdefault(rec["cs"], [0, 0])
+            cs_agg[0] += 1
+            cs_agg[1] += rec["size"]
+            g["jobs"].add(rec["job"])
+            if len(g["exemplars"]) < 3:
+                g["exemplars"].append(key)
+            if rec["cs"] in self._leak_suspects:
+                g["leak_suspect"] = True
+            total_bytes += rec["size"]
+            total_objects += 1
+        # untracked live objects keep totals honest
+        for oid, size in list(self._object_sizes.items()):
+            if oid in seen:
+                continue
+            gk = (
+                "<untracked>"
+                if group_by == "callsite"
+                else oid.binary()[20:24].hex()
+                if group_by == "job"
+                else "head"
+            )
+            g = bucket(gk)
+            g["count"] += 1
+            g["bytes"] += size
+            g["classes"]["IN_USE"] = g["classes"].get("IN_USE", 0) + 1
+            total_bytes += size
+            total_objects += 1
+        rows = sorted(groups.values(), key=lambda g: -g["bytes"])
+        truncated = len(rows) > limit
+        rows = rows[: int(limit)]
+        for g in rows:
+            g["jobs"] = sorted(g["jobs"])
+            # top-3 callsites per group (the quota-kill "who filled it" view)
+            g["callsites"] = [
+                {"callsite": cs, "count": c, "bytes": b}
+                for cs, (c, b) in sorted(
+                    g["callsites"].items(), key=lambda kv: -kv[1][1]
+                )[:3]
+            ]
+        store_stats = {}
+        store = self._node.store_client
+        if store is not None:
+            try:
+                store_stats = dict(store.usage_stats())
+            except Exception:
+                store_stats = {}
+        store_stats["capacity_bytes"] = int(self.config.object_store_memory)
+        store_stats["highwater_bytes"] = int(self._store_highwater)
+        return {
+            "group_by": group_by,
+            "rows": rows,
+            "truncated": truncated,
+            "total_objects": total_objects,
+            "total_bytes": total_bytes,
+            "store": store_stats,
+            "leak_suspects": dict(self._leak_suspects),
+            "class_counts": dict(self._obj_class_counts),
+        }
+
+    def _top_callsites(self, job_hex: Optional[str] = None, top: int = 5):
+        """Top live callsites by bytes (optionally one job's) — the OOM /
+        quota forensics digest. Off-loop tolerant: iterates snapshots."""
+        per_cs: Dict[str, List[int]] = {}
+        try:
+            for rec in list(self._obj_prov.values()):
+                if job_hex is not None and rec["job"] != job_hex:
+                    continue
+                agg = per_cs.setdefault(rec["cs"], [0, 0])
+                agg[0] += 1
+                agg[1] += rec["size"]
+        except RuntimeError:
+            pass  # racing the loop's dict mutation: partial digest is fine
+        return [
+            {"callsite": cs, "count": c, "bytes": b}
+            for cs, (c, b) in sorted(
+                per_cs.items(), key=lambda kv: -kv[1][1]
+            )[: int(top)]
+        ]
+
+    def memory_forensics_snapshot(
+        self, job_bin: Optional[bytes] = None, top: int = 5
+    ) -> dict:
+        """Store usage + top-callsites digest for kill-time forensics (the
+        OOM event names what filled the store, not just the victim).
+        Callable from any thread."""
+        out: dict = {}
+        store = self._node.store_client
+        if store is not None:
+            try:
+                st = store.usage_stats()
+                out["store_used_bytes"] = st["sealed_bytes"]
+                out["store_unsealed_bytes"] = st["unsealed_bytes"]
+            except Exception:
+                pass
+        out["store_capacity_bytes"] = int(self.config.object_store_memory)
+        out["top_callsites"] = self._top_callsites(top=top)
+        if job_bin is not None:
+            out["job_top_callsites"] = self._top_callsites(
+                job_hex=job_bin.hex(), top=top
+            )
+        return out
+
+    def request_telemetry_flush(self, timeout: float = 2.0) -> bool:
+        """Cluster-wide read-your-writes flush: ask every live worker to
+        drain its TelemetryBuffer now and wait (bounded) for the acks.
+        Callable from any thread EXCEPT the scheduler loop (the loop must
+        keep running to pump the acks)."""
+        import uuid as _uuid
+
+        req_id = _uuid.uuid4().hex
+        ev = threading.Event()
+        self._telemetry_flush_waiters[req_id] = [ev, -1]
+        self.post(("telemetry_flush_bcast", req_id))
+        ok = ev.wait(timeout)
+        self._telemetry_flush_waiters.pop(req_id, None)
+        return ok
+
+    def _broadcast_telemetry_flush(self, req_id: str) -> None:
+        """Loop side of request_telemetry_flush: fan the request out over
+        every ready worker conn (loop-owned sends — no races with exec) and
+        arm the ack countdown. Workers answer from their reader thread, so
+        a busy task doesn't delay the flush."""
+        waiter = self._telemetry_flush_waiters.get(req_id)
+        if waiter is None:
+            return  # caller already timed out
+        sent = 0
+        for w in list(self.workers.values()):
+            if w.state not in ("idle", "busy", "blocked"):
+                continue
+            try:
+                w.conn.send(("flush_telemetry", req_id))
+                sent += 1
+            except (OSError, EOFError):
+                pass  # dying worker: its death handler runs on this loop
+        waiter[1] = sent
+        if sent == 0:
+            waiter[0].set()
+
+    def _on_telemetry_ack(self, req_id: str) -> None:
+        waiter = self._telemetry_flush_waiters.get(req_id)
+        if waiter is None:
+            return
+        waiter[1] -= 1
+        if waiter[1] == 0:
+            waiter[0].set()
+
+    def _runtime_metric_series(self) -> List[dict]:
+        """Runtime internals as first-class metric series for /metrics
+        (labels keyed exactly like app metrics: a sorted-json label dict).
+        Runs on the loop thread, so all loop-owned state is safe to read."""
+
+        def lk(**labels) -> str:
+            return json.dumps(labels, sort_keys=True)
+
+        series: List[dict] = []
+
+        def add(name, kind, description, data):
+            series.append(
+                {
+                    "name": name,
+                    "kind": kind,
+                    "description": description,
+                    "data": data,
+                }
+            )
+
+        add(
+            "ray_tpu_torch_scheduler_queue_depth",
+            "gauge",
+            "tasks waiting in the scheduler's sharded ready queue",
+            {lk(): self._ready_count},
+        )
+        shard_depth: Dict[str, int] = {}
+        for shard in self._ready_shards.values():
+            if not shard.queue:
+                continue
+            if shard.demand is None:
+                key = lk(kind="OTHER", shape="per-task")
+            else:
+                key = lk(
+                    kind=shard.kind,
+                    shape=json.dumps(shard.demand, sort_keys=True),
+                )
+            shard_depth[key] = shard_depth.get(key, 0) + len(shard.queue)
+        add(
+            "ray_tpu_torch_sched_ready_shard_depth",
+            "gauge",
+            "queued tasks per (strategy, resource shape) ready-queue shard",
+            shard_depth or {lk(): 0},
+        )
+        add(
+            "ray_tpu_torch_sched_tick_seconds",
+            "histogram",
+            "dispatch-pass duration per scheduler tick (flat in queue depth)",
+            {lk(): json.loads(json.dumps(self._tick_hist))},
+        )
+        add(
+            "ray_tpu_torch_sched_locality_decisions_total",
+            "counter",
+            "big-arg placement decisions that landed on a node holding the "
+            "argument bytes (hit) vs not (miss)",
+            {
+                lk(outcome="hit"): self._locality_hits,
+                lk(outcome="miss"): self._locality_misses,
+            },
+        )
+        # transfer plane (netplane): link ledger + watchdog series
+        add(
+            "ray_tpu_torch_transfer_path_gib_per_s",
+            "gauge",
+            "fleet throughput EWMA per transfer path "
+            "(socket | shm_peer | spill | relay)",
+            {lk(path=p): round(v, 4) for p, v in self._net_path_ewma.items()}
+            or {lk(): 0},
+        )
+        add(
+            "ray_tpu_torch_transfer_stage_seconds_total",
+            "counter",
+            "cumulative seconds per transfer stage "
+            "(dial | request | first_byte_wait | wire | seal)",
+            {
+                lk(stage=s): round(v, 4)
+                for s, v in sorted(self._net_stage_seconds.items())
+            }
+            or {lk(): 0},
+        )
+        add(
+            "ray_tpu_torch_slow_link_events_total",
+            "counter",
+            "SLOW_LINK flags: links whose throughput EWMA sat below "
+            "slow_link_fraction x the fleet median",
+            {lk(): self._slow_link_events},
+        )
+        add(
+            "ray_tpu_torch_link_bytes_total",
+            "counter",
+            "cumulative transferred bytes per (src, dst, path) link "
+            "(bounded: beyond net_links_max new links fold into <other>)",
+            {
+                lk(src=r["src"], dst=r["dst"], path=r["path"]): r["bytes"]
+                for r in self._net_links.values()
+            }
+            or {lk(): 0},
+        )
+        add(
+            "ray_tpu_torch_link_throughput_gib_per_s",
+            "gauge",
+            "per-link throughput EWMA (socket-plane links with enough "
+            "samples; the slow-link watchdog's input)",
+            {
+                lk(src=r["src"], dst=r["dst"], path=r["path"]): round(
+                    r["ewma_gib_per_s"], 4
+                )
+                for r in self._net_links.values()
+                if r["ewma_gib_per_s"] is not None
+            }
+            or {lk(): 0},
+        )
+        by_state: Dict[str, int] = {}
+        for t in self.tasks.values():
+            by_state[t.state] = by_state.get(t.state, 0) + 1
+        add(
+            "ray_tpu_torch_scheduler_tasks",
+            "gauge",
+            "task records by lifecycle state",
+            {lk(state=s): n for s, n in sorted(by_state.items())},
+        )
+        by_wstate: Dict[str, int] = {}
+        for w in self.workers.values():
+            by_wstate[w.state] = by_wstate.get(w.state, 0) + 1
+        add(
+            "ray_tpu_torch_workers",
+            "gauge",
+            "worker processes by state",
+            {lk(state=s): n for s, n in sorted(by_wstate.items())},
+        )
+        # ---- control-plane observability: worker-pool telemetry +
+        # launch lifecycle + decision flight recorder ----
+        pool: Dict[str, int] = {}
+        for w in self.workers.values():
+            if w.state == "dead":
+                continue
+            key = lk(node=w.node_id.hex()[:12], state=w.state)
+            pool[key] = pool.get(key, 0) + 1
+        add(
+            "ray_tpu_torch_worker_pool",
+            "gauge",
+            "head-managed worker-pool occupancy per (node, state) "
+            "(starting | idle | busy | blocked)",
+            pool or {lk(): 0},
+        )
+        add(
+            "ray_tpu_torch_worker_spawns_total",
+            "counter",
+            "head-initiated worker spawns by outcome (ready ack received "
+            "vs died before ready)",
+            {
+                lk(outcome="ok"): self._spawn_total - self._spawn_failed_total,
+                lk(outcome="failed"): self._spawn_failed_total,
+            },
+        )
+        add(
+            "ray_tpu_torch_worker_spawn_seconds",
+            "histogram",
+            "worker spawn latency: spawn_worker issue to ready ack",
+            {lk(): json.loads(json.dumps(self._spawn_hist))},
+        )
+        add(
+            "ray_tpu_torch_actor_launches_total",
+            "counter",
+            "actor creations settled with a full lifecycle decomposition",
+            {lk(): self._launch_done_total},
+        )
+        add(
+            "ray_tpu_torch_actor_launch_stage_seconds_total",
+            "counter",
+            "cumulative seconds per actor-creation lifecycle stage "
+            "(submit | placement | worker_spawn | execute | runtime_env | "
+            "actor_class_load)",
+            {
+                lk(stage=s.replace("_ms", "")): round(v, 4)
+                for s, v in sorted(self._launch_stage_seconds.items())
+            }
+            or {lk(): 0},
+        )
+        add(
+            "ray_tpu_torch_worker_boot_stage_seconds_total",
+            "counter",
+            "cumulative seconds per worker boot stage riding the ready "
+            "ack (import | store_connect | runtime_init | serve_bind)",
+            {
+                lk(stage=s.replace("_ms", "")): round(v, 4)
+                for s, v in sorted(self._worker_boot_stage_seconds.items())
+            }
+            or {lk(): 0},
+        )
+        add(
+            "ray_tpu_torch_actor_launch_stalled_total",
+            "counter",
+            "ACTOR_LAUNCH_STALLED flags: creations stuck in one lifecycle "
+            "stage past actor_launch_warn_s",
+            {lk(): self._launch_stalled_total},
+        )
+        with self._decision_lock:
+            dec_counts = dict(self._decision_counts)
+        add(
+            "ray_tpu_torch_decisions_total",
+            "counter",
+            "decision flight-recorder records by kind "
+            "(placement | autoscaler)",
+            {lk(kind=k): n for k, n in sorted(dec_counts.items())}
+            or {lk(): 0},
+        )
+        # multi-tenant job plane: per-job arbitration series
+        jobs_sorted = sorted(self._jobs.values(), key=lambda j: j.seq)
+        ready_by_job = self._job_ready_counts()
+        add(
+            "ray_tpu_torch_job_ready_tasks",
+            "gauge",
+            "tasks waiting in each job's ready sub-queues",
+            {
+                lk(job=js.name): ready_by_job.get(js.job_bin, 0)
+                for js in jobs_sorted
+            }
+            or {lk(): 0},
+        )
+        add(
+            "ray_tpu_torch_job_running_tasks",
+            "gauge",
+            "live dispatched attempts per job",
+            {lk(job=js.name): js.running for js in jobs_sorted} or {lk(): 0},
+        )
+        add(
+            "ray_tpu_torch_preemptions_total",
+            "counter",
+            "workers killed by priority preemption, labeled by victim job",
+            {lk(job=js.name): js.preemptions for js in jobs_sorted}
+            or {lk(): 0},
+        )
+        add(
+            "ray_tpu_torch_oom_kills_total",
+            "counter",
+            "memory-monitor kills labeled by the victim's job",
+            {lk(job=js.name): js.oom_kills for js in jobs_sorted}
+            or {lk(): 0},
+        )
+        add(
+            "ray_tpu_torch_jobs_admission_queued",
+            "gauge",
+            "jobs parked in the admission queue",
+            {lk(): len(self._admission_queue)},
+        )
+        calls = {}
+        secs = {}
+        for handler, (c, t) in self._event_stats.items():
+            calls[lk(handler=handler)] = int(c)
+            secs[lk(handler=handler)] = round(t, 6)
+        add(
+            "ray_tpu_torch_scheduler_handler_calls_total",
+            "counter",
+            "scheduler loop handler invocations (event_stats)",
+            calls,
+        )
+        add(
+            "ray_tpu_torch_scheduler_handler_seconds_total",
+            "counter",
+            "cumulative seconds per scheduler loop handler (event_stats)",
+            secs,
+        )
+        add(
+            "ray_tpu_torch_scheduler_loop_cpu_seconds_total",
+            "counter",
+            "scheduler loop thread CPU seconds",
+            {lk(): round(time.clock_gettime(time.CLOCK_THREAD_CPUTIME_ID), 3)},
+        )
+        add(
+            "ray_tpu_torch_scheduler_loop_wall_seconds_total",
+            "counter",
+            "scheduler loop wall-clock seconds since start",
+            {
+                lk(): round(
+                    time.monotonic() - getattr(self, "_loop_started_at", time.monotonic()),
+                    3,
+                )
+            },
+        )
+        store = self._node.store_client
+        used = 0
+        unsealed = 0
+        nobj = 0
+        if store is not None:
+            try:
+                st = store.usage_stats()
+                used = int(st["sealed_bytes"])
+                unsealed = int(st["unsealed_bytes"])
+                nobj = int(st["sealed_objects"])
+                self._store_highwater = max(
+                    self._store_highwater, used + unsealed
+                )
+            except Exception:
+                pass
+        add(
+            "ray_tpu_torch_object_store_bytes_used",
+            "gauge",
+            "bytes of SEALED objects in the head object store (one "
+            "consistent snapshot; in-flight creates are reported "
+            "separately so usage can never transiently exceed capacity)",
+            {lk(): used},
+        )
+        add(
+            "ray_tpu_torch_object_store_unsealed_bytes",
+            "gauge",
+            "bytes of in-flight (created, not yet sealed) store "
+            "allocations",
+            {lk(): unsealed},
+        )
+        add(
+            "ray_tpu_torch_object_store_highwater_bytes",
+            "gauge",
+            "high-water mark of sealed+unsealed store bytes this session",
+            {lk(): int(self._store_highwater)},
+        )
+        add(
+            "ray_tpu_torch_object_store_capacity_bytes",
+            "gauge",
+            "configured object store arena capacity",
+            {lk(): int(self.config.object_store_memory)},
+        )
+        add(
+            "ray_tpu_torch_object_store_objects",
+            "gauge",
+            "sealed objects in the head object store",
+            {lk(): nobj},
+        )
+        # ---- memory observability plane ----
+        add(
+            "ray_tpu_torch_object_provenance_entries",
+            "gauge",
+            "objects tracked by the allocation-provenance index "
+            "(callsite/job/trace per live object)",
+            {lk(): len(self._obj_prov)},
+        )
+        add(
+            "ray_tpu_torch_object_provenance_dropped_total",
+            "counter",
+            "provenance records dropped at the object_provenance_max bound",
+            {lk(): self._prov_dropped},
+        )
+        add(
+            "ray_tpu_torch_object_leak_suspects",
+            "gauge",
+            "callsites currently flagged by the leak watchdog "
+            "(monotonic live-byte growth over the sliding window)",
+            {lk(): len(self._leak_suspects)},
+        )
+        add(
+            "ray_tpu_torch_object_leak_events_total",
+            "counter",
+            "OBJECT_LEAK_SUSPECT cluster events emitted by the watchdog",
+            {lk(): self._leak_events_total},
+        )
+        add(
+            "ray_tpu_torch_objects_by_class",
+            "gauge",
+            "tracked objects by ref-holder classification (IN_USE / "
+            "PINNED_BY_DEAD_OWNER / CAPTURED_IN_ACTOR / LEAK_SUSPECT)",
+            {
+                lk(**{"class": c}): n
+                for c, n in sorted(self._obj_class_counts.items())
+            }
+            or {lk(): 0},
+        )
+        add(
+            "ray_tpu_torch_object_bytes_by_job",
+            "gauge",
+            "live object-store bytes charged per owning job (the "
+            "object_store_bytes quota ledger)",
+            {lk(job=js.name): js.object_bytes for js in jobs_sorted}
+            or {lk(): 0},
+        )
+        from ray_tpu_torch._private import fastcopy as _fastcopy
+
+        stage_secs = {}
+        stage_bytes = {}
+        stage_gibs = {}
+        for stage, (c, t, b) in _fastcopy.stage_stats().items():
+            key = lk(stage=stage)
+            stage_secs[key] = round(t, 6)
+            stage_bytes[key] = int(b)
+            if t > 0 and b:
+                stage_gibs[key] = round(b / t / 2**30, 3)
+        add(
+            "ray_tpu_torch_fastcopy_stage_seconds_total",
+            "counter",
+            "cumulative seconds per large-object data-path stage",
+            stage_secs,
+        )
+        add(
+            "ray_tpu_torch_fastcopy_stage_bytes_total",
+            "counter",
+            "cumulative bytes per large-object data-path stage",
+            stage_bytes,
+        )
+        add(
+            "ray_tpu_torch_fastcopy_stage_gib_per_s",
+            "gauge",
+            "per-stage bandwidth of the large-object data path",
+            stage_gibs,
+        )
+        add(
+            "ray_tpu_torch_task_events_total",
+            "counter",
+            "task lifecycle events + spans held in the merged event log",
+            {lk(): len(self._task_events)},
+        )
+        add(
+            "ray_tpu_torch_telemetry_batches_total",
+            "counter",
+            "TelemetryBuffer batches merged by the scheduler",
+            {lk(): self._telemetry_batches},
+        )
+        add(
+            "ray_tpu_torch_telemetry_events_total",
+            "counter",
+            "events delivered through telemetry batches",
+            {lk(): self._telemetry_events},
+        )
+        add(
+            "ray_tpu_torch_telemetry_dropped_total",
+            "counter",
+            "telemetry events dropped at capacity or on dead pipes "
+            "(explicit loss accounting)",
+            {lk(): self._telemetry_dropped},
+        )
+        add(
+            "ray_tpu_torch_stragglers_total",
+            "counter",
+            "running tasks flagged by the straggler watchdog "
+            "(elapsed > factor x p95 of the function's runtimes)",
+            {lk(): self._straggler_count},
+        )
+        add(
+            "ray_tpu_torch_traces_indexed",
+            "gauge",
+            "traces in the bounded recent-trace index (request tracing)",
+            {lk(): len(self._trace_index)},
+        )
+        add(
+            "ray_tpu_torch_profiler_stacks",
+            "gauge",
+            "distinct (task, stack) aggregation slots held by the "
+            "continuous profiler",
+            {lk(): len(self._profile_samples)},
+        )
+        add(
+            "ray_tpu_torch_profiler_samples_total",
+            "counter",
+            "stack samples aggregated by the continuous profiler",
+            {lk(): sum(self._profile_samples.values())},
+        )
+        add(
+            "ray_tpu_torch_profiler_dropped_total",
+            "counter",
+            "profiler samples dropped at the stack-slot bound",
+            {lk(): self._profile_samples_dropped},
+        )
+        # per-job sliding-window latency quantiles; the slowest samples'
+        # trace ids ride a companion exemplar series so a slow bucket links
+        # straight to `ray_tpu_torch trace <id>`
+        lat_q: Dict[str, float] = {}
+        lat_ex: Dict[str, float] = {}
+        for job, win in self._job_latency.items():
+            snap = win.snapshot()
+            if not snap.get("count"):
+                continue
+            for q in ("p50", "p95", "p99"):
+                if snap.get(q) is not None:
+                    lat_q[lk(job=job, quantile=q)] = snap[q]
+            for ex in snap.get("exemplars") or ():
+                lat_ex[lk(job=job, trace_id=ex["trace_id"])] = ex["latency_ms"]
+        if lat_q:
+            add(
+                "ray_tpu_torch_job_latency_ms",
+                "gauge",
+                "sliding-window end-to-end task latency per job "
+                f"(window {getattr(self.config, 'latency_window_s', 60.0):g}s)",
+                lat_q,
+            )
+        if lat_ex:
+            add(
+                "ray_tpu_torch_job_latency_exemplar_ms",
+                "gauge",
+                "slowest in-window task latencies with their trace ids "
+                "(feed the id to `ray_tpu_torch trace`)",
+                lat_ex,
+            )
+        add(
+            "ray_tpu_torch_cluster_events_total",
+            "counter",
+            "structured cluster events recorded (failure forensics plane)",
+            {lk(type=t): n for t, n in sorted(self._cluster_event_counts.items())}
+            or {lk(): 0},
+        )
+        add(
+            "ray_tpu_torch_ownership_ref_ops_total",
+            "counter",
+            "head-processed reference-count mutations",
+            {lk(): self._refop_count},
+        )
+        add(
+            "ray_tpu_torch_ownership_commits_total",
+            "counter",
+            "head-committed task results",
+            {lk(): self._commit_count},
+        )
+        # ---- alerting & incidents plane ----
+        mgr = self._incident_mgr
+        if mgr is not None:
+            open_by_kind: Dict[str, int] = {}
+            for row in mgr.list_incidents(state="open"):
+                open_by_kind[row["kind"]] = open_by_kind.get(row["kind"], 0) + 1
+            add(
+                "ray_tpu_torch_incidents_open",
+                "gauge",
+                "currently-open incidents per kind (alerting plane)",
+                {lk(kind=k): n for k, n in sorted(open_by_kind.items())}
+                or {lk(): 0},
+            )
+            add(
+                "ray_tpu_torch_incidents_total",
+                "counter",
+                "incidents ever opened per kind",
+                {lk(kind=k): n for k, n in sorted(mgr.opened_total.items())}
+                or {lk(): 0},
+            )
+            add(
+                "ray_tpu_torch_incidents_closed_total",
+                "counter",
+                "incidents closed with a measured duration and verdict",
+                {lk(): mgr.closed_total},
+            )
+            add(
+                "ray_tpu_torch_incident_open_seconds_max",
+                "gauge",
+                "age of the oldest currently-open incident",
+                {lk(): round(mgr.oldest_open_age(), 3)},
+            )
+            burn: Dict[str, float] = {}
+            ok: Dict[str, float] = {}
+            for row in mgr.list_slos():
+                ok[lk(slo=row["name"])] = 1 if row.get("ok") else 0
+                worst = row.get("worst") or {}
+                for win in ("fast", "slow"):
+                    v = worst.get(f"burn_{win}")
+                    if v is not None:
+                        burn[lk(slo=row["name"], window=win)] = v
+            if ok:
+                add(
+                    "ray_tpu_torch_slo_ok",
+                    "gauge",
+                    "1 while the SLO is within budget on every subject, "
+                    "0 while any subject is breached",
+                    ok,
+                )
+            if burn:
+                add(
+                    "ray_tpu_torch_slo_burn_rate",
+                    "gauge",
+                    "worst-subject error-budget burn rate per SLO and "
+                    "evaluation window (>= threshold on BOTH windows "
+                    "breaches)",
+                    burn,
+                )
+            add(
+                "ray_tpu_torch_slo_breaches_total",
+                "counter",
+                "multi-window burn-rate breaches per SLO",
+                {
+                    lk(slo=name): n
+                    for name, n in sorted(mgr._slo_breaches.items())
+                }
+                or {lk(): 0},
+            )
+            sink_counts = {
+                lk(sink=name): n
+                for name, n in sorted(mgr.sinks.emitted.items())
+            }
+            add(
+                "ray_tpu_torch_alerts_emitted_total",
+                "counter",
+                "alert payloads delivered per configured sink "
+                "(open + close notifications)",
+                sink_counts or {lk(): 0},
+            )
+        return series
+
+    def _terminate_worker(self, w: WorkerState):
+        """Hard-kill a worker process."""
+        if w.proc is not None:
+            try:
+                w.proc.terminate()
+            except Exception:
+                pass
+
+    def _shutdown_workers(self):
+        self._close_log_files()
+        for w in self.workers.values():
+            if w.state != "dead":
+                try:
+                    w.conn.send(("exit",))
+                except (OSError, EOFError):
+                    pass
+        deadline = time.monotonic() + 2
+        for w in self.workers.values():
+            if w.proc is not None:
+                w.proc.join(timeout=max(0, deadline - time.monotonic()))
+                if w.proc.is_alive():
+                    w.proc.terminate()

@@ -1,0 +1,1064 @@
+"""Training step-time & goodput attribution plane — "where did the step go".
+
+The tracing plane answers "where did the time go" per *request* and
+the memory plane answers "where did the bytes go" per *object*; this module
+answers the same question for the workload the north star optimizes:
+distributed JAX training steps. Every ``train.report`` boundary closes one
+**step record** per rank, decomposing wall step time into
+
+    data_wait (batch-iterator blocking, with per-operator stall attribution
+               from the streaming executor's backpressure state)
+    -> host_to_device (device_put in iter_jax_batches)
+    -> compile (compile duration events, attributed to the step that
+                triggered them; a recompilation detector flags steps that
+                compile after warmup, with the changed batch shape signature;
+                the port has no compile hook yet, so nothing feeds it)
+    -> compute (the residual of the loop half of the step)
+    -> collective_wait (head-side: cross-rank skew of the pre-report
+                        timestamps, naming the straggler rank)
+    -> checkpoint_stall (the blocking local-snapshot portion of
+                         train.report(checkpoint=), joining the
+                         checkpoint_save spans)
+    -> other (honest residue: report/collector overhead and anything the
+              seams above did not measure)
+
+Worker side: a :class:`StepTimer` per training session, activated
+process-wide so the data iterator and a compile listener can
+publish into the active step without plumbing. Each finalized record RIDES
+THE NEXT ``train.report`` collector rpc (zero extra messages on the step
+hot path — the memory plane's ride-existing-messages rule; the session's
+last record and any driver-local sessions drain through the telemetry
+ring instead), is drained by the executor, and lands batched (publish
+cadence) in the scheduler's bounded per-run :class:`StepIndex`, which
+computes the cross-rank skew once every rank's record for a step has
+landed and keeps run-level stage aggregates for evicted steps.
+
+Head side the :class:`StepIndex` also merges executor-pushed run metadata
+(the ``train_run_meta`` rpc): live goodput and the **downtime ledger** —
+goodput upgraded from one end-of-run scalar into windows attributed by
+cause (recovery, gang_restart, preemption, checkpoint_drain,
+admission_wait) so a chaos run's goodput loss sums to its attributed
+downtime.
+
+Surfaces: ``ray_tpu_torch.train_timeline(run)``, ``state.list_train_runs()`` /
+``state.train_run(run)``, the ``ray_tpu_torch train`` CLI, the dashboard train
+tab, and the ``ray_tpu_torch_train_*`` Prometheus series below.
+"""
+
+from __future__ import annotations
+
+import collections
+import threading
+import time
+from typing import Any, Dict, List, Optional, Tuple
+
+# ---------------------------------------------------------------------------
+# enabled gate (memoized per runtime, like memplane)
+# ---------------------------------------------------------------------------
+
+_enabled_cache: Tuple[Optional[object], bool] = (None, False)
+
+
+def enabled() -> bool:
+    """Plane on? ``train_obs_enabled`` config flag; requires the telemetry
+    pipeline (records ride its batches). Unconnected processes read as
+    disabled."""
+    global _enabled_cache
+    try:
+        from ray_tpu_torch._private import worker as worker_mod
+
+        rt = worker_mod._worker_runtime or worker_mod._driver
+        if rt is None:
+            return False
+        cached_rt, val = _enabled_cache
+        if rt is cached_rt:
+            return val
+        cfg = getattr(rt, "config", None)
+        val = bool(getattr(cfg, "train_obs_enabled", True)) and bool(
+            getattr(cfg, "telemetry_enabled", True)
+        )
+        _enabled_cache = (rt, val)
+        return val
+    except Exception:
+        return False
+
+
+def _config_attr(name: str, default):
+    try:
+        from ray_tpu_torch._private import worker as worker_mod
+
+        rt = worker_mod._worker_runtime or worker_mod._driver
+        cfg = getattr(rt, "config", None)
+        v = getattr(cfg, name, None)
+        return default if v is None else v
+    except Exception:
+        return default
+
+
+# ---------------------------------------------------------------------------
+# worker-side metrics (single registration site per series — lint-enforced)
+# ---------------------------------------------------------------------------
+
+_metrics_lock = threading.Lock()
+_metrics: Optional[Dict[str, Any]] = None
+
+
+def _get_metrics() -> Dict[str, Any]:
+    global _metrics
+    with _metrics_lock:
+        if _metrics is None:
+            from ray_tpu_torch.util.metrics import Counter, Gauge, Histogram
+
+            _metrics = {
+                "step_stage": Histogram(
+                    "ray_tpu_torch_train_step_seconds",
+                    "per-step stage decomposition of training steps "
+                    "(seconds; stage=data_wait|host_to_device|compile|"
+                    "compute|collective_wait|checkpoint_stall|other)",
+                    tag_keys=("stage",),
+                ),
+                "step_wall": Histogram(
+                    "ray_tpu_torch_train_step_wall_seconds",
+                    "whole-step wall time per rank (report boundary to "
+                    "report boundary)",
+                    tag_keys=("run",),
+                ),
+                "data_wait_ratio": Gauge(
+                    "ray_tpu_torch_train_data_wait_ratio",
+                    "fraction of recent step wall spent blocked on the "
+                    "batch iterator (input-bound indicator, per run)",
+                    tag_keys=("run",),
+                ),
+                "recompiles": Counter(
+                    "ray_tpu_torch_train_recompiles_total",
+                    "steps that triggered a recompilation AFTER the "
+                    "warmup window (train_recompile_warmup_steps) — each "
+                    "carries the changed batch shape signature",
+                    tag_keys=("run",),
+                ),
+                "ingest_stall": Counter(
+                    "ray_tpu_torch_train_ingest_stall_seconds_total",
+                    "batch-iterator blocking time attributed to the "
+                    "bottleneck streaming-executor operator",
+                    tag_keys=("run", "operator"),
+                ),
+                "compile_s": Counter(
+                    "ray_tpu_torch_train_compile_seconds_total",
+                    "compile time attributed to training steps",
+                    tag_keys=("run",),
+                ),
+                "h2d_s": Counter(
+                    "ray_tpu_torch_train_host_to_device_seconds_total",
+                    "host->device batch transfer time (device_put in "
+                    "iter_jax_batches)",
+                    tag_keys=("run",),
+                ),
+                "ckpt_stall_s": Counter(
+                    "ray_tpu_torch_train_checkpoint_stall_seconds_total",
+                    "blocking (local-snapshot) portion of "
+                    "train.report(checkpoint=) — the async upload rides "
+                    "the checkpoint plane",
+                    tag_keys=("run",),
+                ),
+                "steps": Counter(
+                    "ray_tpu_torch_train_steps_total",
+                    "training steps completed (one per rank per step)",
+                    tag_keys=("run",),
+                ),
+            }
+    return _metrics
+
+
+# ---------------------------------------------------------------------------
+# the active timer (thread-local with a process-wide fallback, mirroring
+# _session._set_session: the SIGTERM drain and the jax monitoring listener
+# can fire on side threads of a worker running one session)
+# ---------------------------------------------------------------------------
+
+_local = threading.local()
+_timer_fallback: Optional["StepTimer"] = None
+
+
+def activate(timer: Optional["StepTimer"]) -> None:
+    global _timer_fallback
+    prev = current()
+    if prev is not None and prev is not timer:
+        # session ending / being replaced: push its pending metric batch
+        # and the last step's record (which has no next report to ride)
+        try:
+            prev.flush_metrics()
+            prev.flush_pending_record()
+        except Exception:
+            pass
+    _local.timer = timer
+    _timer_fallback = timer
+
+
+def current() -> Optional["StepTimer"]:
+    t = getattr(_local, "timer", None)
+    return t if t is not None else _timer_fallback
+
+
+def note_data_wait(seconds: float, operator: Optional[str] = None) -> None:
+    """Batch iterator blocked for ``seconds`` (data/iterator.py seam)."""
+    t = current()
+    if t is not None:
+        t.note_data_wait(seconds, operator)
+
+
+def note_host_to_device(seconds: float) -> None:
+    t = current()
+    if t is not None:
+        t.note_host_to_device(seconds)
+
+
+def note_compile(event: str, seconds: float) -> None:
+    """One compile duration event landed on this process; attributed to the
+    active step if a timer is live."""
+    t = current()
+    if t is not None:
+        t.note_compile(event, seconds)
+
+
+def note_checkpoint_stall(seconds: float) -> None:
+    t = current()
+    if t is not None:
+        t.note_checkpoint_stall(seconds)
+
+
+def note_batch_signature(sig: str) -> None:
+    t = current()
+    if t is not None:
+        t.note_batch_signature(sig)
+
+
+def batch_signature(batch: Dict[str, Any]) -> str:
+    """Abstract-shape signature of one batch dict — what jit retraces on.
+    ``key:dtype[shape]`` per column, sorted for stability."""
+    parts = []
+    for k in sorted(batch):
+        v = batch[k]
+        shape = tuple(getattr(v, "shape", ()) or ())
+        dtype = getattr(getattr(v, "dtype", None), "name", None) or type(v).__name__
+        parts.append(f"{k}:{dtype}{list(shape)}")
+    return ",".join(parts)
+
+
+# ---------------------------------------------------------------------------
+# worker-side per-step timer
+# ---------------------------------------------------------------------------
+
+# compile sub-phases are disjoint (trace -> mlir -> backend compile), so
+# summing their durations is the compiled-time total; only the backend
+# compile marks "a new executable was built" for the recompile detector
+_RECOMPILE_EVENTS = ("backend_compile", "compile_time")
+
+
+class StepTimer:
+    """Accumulates one rank's stage times between ``train.report`` calls.
+
+    Lifecycle per step: the loop half (data_wait / host_to_device /
+    compile / compute) runs from the previous report's return (``t0``) to
+    the next report's entry (``t1``, :meth:`mark_pre_report`); the report
+    half (checkpoint_stall + collector overhead -> other) runs ``t1..t2``
+    (:meth:`finalize_step`). ``compute`` is the loop residual; ``other``
+    the report residual — both floored at zero so overlap (e.g. a compile
+    inside a data-wait window) can only oversum, never hide time.
+    """
+
+    def __init__(self, run: str, rank: int, world: int,
+                 warmup: Optional[int] = None):
+        self.run = run
+        self.rank = int(rank)
+        self.world = int(world)
+        self.warmup = int(
+            warmup
+            if warmup is not None
+            else _config_attr("train_recompile_warmup_steps", 2)
+        )
+        self.steps_done = 0  # session-local (fresh process = cold jit cache)
+        self._sig: Optional[str] = None
+        self._sig_prev: Optional[str] = None
+        self._last_flagged_sig: Optional[str] = None
+        # locally-accumulated metric observations, flushed on a ~1s
+        # cadence (per-step Histogram.observe calls each pay a snapshot
+        # copy — 8 of them per step dominated the plane's overhead)
+        self._pend_stage: Dict[str, List[float]] = {}
+        self._pend_wall: List[float] = []
+        self._pend_counts: Dict[str, float] = {}
+        self._pend_ops: Dict[str, float] = {}
+        self._pend_recompiles = 0
+        self._last_ratio: Optional[float] = None
+        self._last_metrics_flush = time.perf_counter()
+        # the finalized-but-unshipped record awaiting the next report rpc
+        self._pending_rec: Optional[tuple] = None
+        # sub-floor steps coalesce here (stage sums + count) and emerge as
+        # ONE merged record per flush interval — per-step rows for sub-ms
+        # loops cost record construction per step and flood the bounded
+        # step window without adding signal
+        self._floor_ms = float(_config_attr("train_obs_min_step_ms", 2.0))
+        self._co: Optional[list] = None  # [t0w, t1w, t2w, step, count,
+        #                                  wall, dw, h2d, comp, cu, ck, ot,
+        #                                  compile_events]
+        # resolved once: per-step getattr/import walks (sampler probe,
+        # telemetry buffer, enabled gate) priced out of finalize_step
+        self._enabled = enabled()
+        if self._enabled:
+            from ray_tpu_torch._private import telemetry
+
+            self._buffer = telemetry.get_buffer()
+            self._buffer.ensure_flusher()
+        else:
+            self._buffer = None
+        self._reset(time.time(), time.perf_counter())
+
+    def _reset(self, wall_now: float, perf_now: float) -> None:
+        self._t0_wall = wall_now
+        self._t0 = perf_now
+        self._t1_wall: Optional[float] = None
+        self._t1: Optional[float] = None
+        self._data_wait = 0.0
+        self._h2d = 0.0
+        self._compile = 0.0
+        self._ckpt_stall = 0.0
+        self._ops: Dict[str, float] = {}
+        self._compile_events = 0
+        self._recompiled = False
+
+    # -- accumulation (loop-thread hot path, no locks: one session per
+    # worker and GIL-atomic float adds) ------------------------------------
+
+    def note_data_wait(self, seconds: float, operator: Optional[str]) -> None:
+        s = max(0.0, float(seconds))
+        self._data_wait += s
+        if operator:
+            self._ops[operator] = self._ops.get(operator, 0.0) + s
+
+    def note_host_to_device(self, seconds: float) -> None:
+        self._h2d += max(0.0, float(seconds))
+
+    def note_compile(self, event: str, seconds: float) -> None:
+        self._compile += max(0.0, float(seconds))
+        tail = event.rstrip("/").rsplit("/", 1)[-1]
+        if any(tail.startswith(e) for e in _RECOMPILE_EVENTS):
+            self._compile_events += 1
+            if self.steps_done >= self.warmup:
+                self._recompiled = True
+
+    def note_checkpoint_stall(self, seconds: float) -> None:
+        self._ckpt_stall += max(0.0, float(seconds))
+
+    def note_batch_signature(self, sig: str) -> None:
+        if sig != self._sig:
+            self._sig_prev, self._sig = self._sig, sig
+
+    def mark_pre_report(self) -> None:
+        """Entry of train.report: the loop half of the step ends here."""
+        self._t1_wall = time.time()
+        self._t1 = time.perf_counter()
+
+    # -- finalize ----------------------------------------------------------
+
+    def finalize_step(self, step: int, trace_id: Optional[str] = None) -> Optional[dict]:
+        """Close the step at the report boundary; emit the record + metrics.
+        Returns the record (None when the plane is disabled)."""
+        end_wall = time.time()
+        end = time.perf_counter()
+        if self._t1 is None:  # report entry not marked (direct callers)
+            self._t1, self._t1_wall = end, end_wall
+        wall = max(0.0, end - self._t0)
+        loop_wall = max(0.0, self._t1 - self._t0)
+        report_wall = max(0.0, end - self._t1)
+        compute = max(
+            0.0, loop_wall - self._data_wait - self._h2d - self._compile
+        )
+        other = max(0.0, report_wall - self._ckpt_stall)
+        wall_ms = wall * 1e3
+        if (
+            wall_ms < self._floor_ms
+            and not self._recompiled
+            and not self._ops
+            and self._ckpt_stall == 0.0
+        ):
+            # sub-floor step: fold into the coalesced accumulator (exact
+            # stage sums, no record build); materialized by _pop_coalesced
+            # on the flush cadence / at session end
+            co = self._co
+            if co is None:
+                co = self._co = [
+                    self._t0_wall, self._t1_wall, end_wall, int(step), 0,
+                    0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0,
+                ]
+            co[1] = self._t1_wall
+            co[2] = end_wall
+            co[3] = int(step)
+            co[4] += 1
+            co[5] += wall_ms
+            co[6] += self._data_wait
+            co[7] += self._h2d
+            co[8] += self._compile
+            co[9] += compute
+            co[11] += other
+            co[12] += self._compile_events
+            rec = None
+        else:
+            # compact positional tuple (decode_record is the schema): a
+            # dict per step measurably taxed the report hot path in build
+            # AND batch-pickle cost — the memory plane's tuple trick
+            rec = (
+                self.run,
+                self.rank,
+                self.world,
+                int(step),
+                self._t0_wall,
+                self._t1_wall,
+                end_wall,
+                wall_ms,
+                (
+                    self._data_wait * 1e3,
+                    self._h2d * 1e3,
+                    self._compile * 1e3,
+                    compute * 1e3,
+                    self._ckpt_stall * 1e3,
+                    other * 1e3,
+                ),
+                {k: v * 1e3 for k, v in self._ops.items()}
+                if self._ops
+                else None,
+                trace_id,
+                self._compile_events,
+                1 if self._recompiled else 0,
+                self._sig,
+                1,
+            )
+        recompiled = self._recompiled
+        sig, sig_prev = self._sig, self._sig_prev
+        ops = dict(self._ops)
+        data_wait, h2d, compile_s, ckpt = (
+            self._data_wait, self._h2d, self._compile, self._ckpt_stall,
+        )
+        self.steps_done += 1
+        self._reset(end_wall, end)
+        if not self._enabled:
+            return None
+        # the record RIDES THE NEXT REPORT's collector rpc (zero extra
+        # messages on the step hot path — the memory plane's trick): it
+        # parks here until pop_pending_record() attaches it, and the
+        # session's LAST record drains through the telemetry ring when
+        # the timer deactivates (flush_pending_record)
+        if rec is not None:
+            prev = self._pending_rec
+            if prev is not None and self._buffer is not None:
+                # collector-less session (driver-local loops): nothing
+                # pops the slot — ship the displaced record via telemetry
+                self._buffer.record_train_step(prev)
+            self._pending_rec = rec
+        # accumulate metric observations locally; flush on a cadence
+        for stage, v in (
+            ("data_wait", data_wait),
+            ("host_to_device", h2d),
+            ("compile", compile_s),
+            ("compute", compute),
+            ("checkpoint_stall", ckpt),
+            ("other", other),
+        ):
+            if v > 0 or stage == "compute":
+                self._pend_stage.setdefault(stage, []).append(v)
+        self._pend_wall.append(wall)
+        self._pend_counts["steps"] = self._pend_counts.get("steps", 0) + 1
+        if wall > 0:
+            self._last_ratio = data_wait / wall  # rounded at flush
+        for key, v in (("compile_s", compile_s), ("h2d_s", h2d),
+                       ("ckpt_stall_s", ckpt)):
+            if v:
+                self._pend_counts[key] = self._pend_counts.get(key, 0.0) + v
+        for op, v in ops.items():
+            self._pend_ops[op] = self._pend_ops.get(op, 0.0) + v
+        if recompiled:
+            self._pend_recompiles += 1
+        if end - self._last_metrics_flush >= 1.0:
+            self.flush_metrics(end)
+        if recompiled and sig != self._last_flagged_sig:
+            # one WARNING per changed signature, not per step: a shape
+            # bug recompiling EVERY step would otherwise flood the
+            # bounded event log
+            self._last_flagged_sig = sig
+            try:
+                from ray_tpu_torch._private import telemetry
+
+                telemetry.record_cluster_event(
+                    "TRAIN_RECOMPILE",
+                    f"run {self.run} rank {self.rank}: step {step} "
+                    f"recompiled after warmup ({self.warmup} steps) — "
+                    f"batch signature changed "
+                    f"{sig_prev or '<unknown>'} -> {sig or '<unknown>'}",
+                    severity="WARNING",
+                    source="TRAIN",
+                    run=self.run,
+                    rank=self.rank,
+                    step=int(step),
+                    signature=sig,
+                    previous_signature=sig_prev,
+                )
+            except Exception:
+                pass
+        return rec
+
+    def pop_pending_record(self):
+        """The previous step's finalized record, to attach to the next
+        report rpc (None when none pending or the plane is off)."""
+        rec, self._pending_rec = self._pending_rec, None
+        return rec
+
+    def _emit_coalesced(self) -> None:
+        """Materialize the coalesced sub-floor block as one merged record
+        (flush cadence / session end): parks in the pending slot when
+        free, else ships via the telemetry ring (both cold paths)."""
+        co, self._co = self._co, None
+        if co is None or not co[4]:
+            return
+        t0w, t1w, t2w, step, count, wall, dw, h2d, comp, cu, ck, ot, cev = co
+        rec = (
+            self.run, self.rank, self.world, step, t0w, t1w, t2w, wall,
+            (dw * 1e3, h2d * 1e3, comp * 1e3, cu * 1e3, ck * 1e3, ot * 1e3),
+            None, None, cev, 0, self._sig, count,
+        )
+        if self._pending_rec is None:
+            self._pending_rec = rec
+        elif self._buffer is not None:
+            self._buffer.record_train_step(rec)
+
+    def flush_pending_record(self) -> None:
+        """Session ending: the last step's record (and any coalesced
+        block) has no next report to ride — ship via the telemetry ring
+        (cold path)."""
+        self._emit_coalesced()
+        rec = self.pop_pending_record()
+        if rec is not None and self._buffer is not None:
+            self._buffer.record_train_step(rec)
+            self._buffer.ensure_flusher()
+
+    def flush_metrics(self, now: Optional[float] = None) -> None:
+        """Emit the locally-accumulated observations (batched: one
+        snapshot copy per series per flush, not per step). Called on the
+        ~1s cadence from finalize_step and when the session deactivates."""
+        self._last_metrics_flush = (
+            now if now is not None else time.perf_counter()
+        )
+        self._emit_coalesced()
+        if not self._pend_wall and not self._pend_counts:
+            return
+        if self._buffer is not None:
+            self._buffer.ensure_flusher()
+        try:
+            m = _get_metrics()
+            run_tag = {"run": self.run}
+            for stage, vals in self._pend_stage.items():
+                m["step_stage"].observe_many(vals, tags={"stage": stage})
+            m["step_wall"].observe_many(self._pend_wall, tags=run_tag)
+            if self._last_ratio is not None:
+                m["data_wait_ratio"].set(
+                    round(self._last_ratio, 4), tags=run_tag
+                )
+            counts = self._pend_counts
+            if counts.get("steps"):
+                m["steps"].inc(counts["steps"], tags=run_tag)
+            for key in ("compile_s", "h2d_s", "ckpt_stall_s"):
+                if counts.get(key):
+                    m[key].inc(counts[key], tags=run_tag)
+            for op, v in self._pend_ops.items():
+                m["ingest_stall"].inc(
+                    v, tags={"run": self.run, "operator": op}
+                )
+            if self._pend_recompiles:
+                m["recompiles"].inc(self._pend_recompiles, tags=run_tag)
+        except Exception:
+            pass
+        self._pend_stage = {}
+        self._pend_wall = []
+        self._pend_counts = {}
+        self._pend_ops = {}
+        self._pend_recompiles = 0
+
+
+def make_timer(run: str, rank: int, world: int) -> Optional[StepTimer]:
+    """A StepTimer when the plane is on, else None (callers keep a None
+    check on their hot path instead of a disabled timer's overhead)."""
+    return StepTimer(run, rank, world) if enabled() else None
+
+
+# ---------------------------------------------------------------------------
+# head-side per-run step index (lives in the scheduler)
+# ---------------------------------------------------------------------------
+
+_STAGE_KEYS = (
+    "data_wait_ms",
+    "host_to_device_ms",
+    "compile_ms",
+    "compute_ms",
+    "collective_wait_ms",
+    "checkpoint_stall_ms",
+    "other_ms",
+)
+
+# positional order of the compact step-record tuple finalize_step emits
+_REC_STAGE_KEYS = (
+    "data_wait_ms",
+    "host_to_device_ms",
+    "compile_ms",
+    "compute_ms",
+    "checkpoint_stall_ms",
+    "other_ms",
+)
+
+
+def decode_record(rec) -> Optional[dict]:
+    """Compact step-record tuple -> the dict shape the StepIndex stores
+    (None on malformed input — telemetry batches are untrusted). The
+    trailing ``merged`` count is 1 for a real per-step row, >1 for a
+    coalesced block of sub-floor steps (stage values are sums over it)."""
+    try:
+        (run, rank, world, step, t0, t1, t2, wall_ms, stages, ops,
+         trace_id, compile_events, recompiled, sig, merged) = rec
+        return {
+            "merged": int(merged),
+            "run": run,
+            "rank": int(rank),
+            "world": int(world),
+            "step": int(step),
+            "t0": t0,
+            "t1": t1,
+            "t2": t2,
+            "wall_ms": round(float(wall_ms), 3),
+            "stages": {
+                k: round(float(v), 3)
+                for k, v in zip(_REC_STAGE_KEYS, stages)
+            },
+            "ops": {k: round(float(v), 3) for k, v in (ops or {}).items()},
+            "trace_id": trace_id,
+            "compile_events": int(compile_events),
+            "recompiled": bool(recompiled),
+            "sig": sig,
+        }
+    except (TypeError, ValueError):
+        return None
+
+
+class StepIndex:
+    """Bounded cluster-side index of train-step records + run metadata.
+
+    One entry per run: a per-step ``{rank: record}`` table (bounded by
+    ``train_step_index_max`` steps, oldest evicted into run-level stage
+    aggregates so totals survive eviction) plus executor-pushed metadata
+    (goodput, downtime ledger, status). The cross-rank ``collective_wait``
+    stage and the straggler rank are computed here, once every rank's
+    record for a step has landed, from the step-boundary timestamps: the
+    rank with the longest step-local loop span is the straggler, and the
+    other ranks' collectives waited the difference for it.
+    """
+
+    def __init__(self, config=None):
+        self._cfg = config
+        self._runs: "collections.OrderedDict[str, dict]" = collections.OrderedDict()
+        self._lock = threading.Lock()
+
+    def _max_steps(self) -> int:
+        return int(getattr(self._cfg, "train_step_index_max", 512) or 512)
+
+    def _max_runs(self) -> int:
+        return int(getattr(self._cfg, "train_runs_max", 32) or 32)
+
+    def _run_entry(self, run: str) -> dict:
+        entry = self._runs.get(run)
+        if entry is None:
+            while len(self._runs) >= self._max_runs():
+                self._runs.popitem(last=False)
+            entry = self._runs[run] = {
+                "run": run,
+                "world": 0,
+                "steps": collections.OrderedDict(),  # step -> {rank: rec}
+                "totals": {k: 0.0 for k in _STAGE_KEYS},
+                "wall_ms_total": 0.0,
+                "records": 0,
+                # per-rank cumulative step counts (merged blocks included);
+                # the run's step count is the MAX over ranks — summing
+                # first-arrivals would double-count coalesced blocks whose
+                # unsynchronized flushes land on different step keys
+                "rank_steps": {},
+                "evicted_steps": 0,
+                "recompiles": 0,
+                "ops": {},
+                "skew": {},  # step -> {skew_ms, straggler_rank}
+                "max_skew_ms": 0.0,
+                "first_time": None,
+                "last_time": None,
+                "meta": {},
+            }
+        return entry
+
+    # -- ingest ------------------------------------------------------------
+
+    def ingest(self, rec) -> None:
+        if isinstance(rec, (tuple, list)):
+            rec = decode_record(rec)
+        if not rec:
+            return
+        run = rec.get("run")
+        step = rec.get("step")
+        if not run or step is None:
+            return
+        with self._lock:
+            entry = self._run_entry(str(run))
+            entry["world"] = max(entry["world"], int(rec.get("world") or 1))
+            steps = entry["steps"]
+            per_rank = steps.get(step)
+            if per_rank is None:
+                per_rank = steps[step] = {}
+                while len(steps) > self._max_steps():
+                    _old_step, old = steps.popitem(last=False)
+                    entry["evicted_steps"] += 1
+                    for r in old.values():
+                        self._fold_totals(entry, r)
+            rank = int(rec.get("rank") or 0)
+            rs = entry["rank_steps"]
+            rs[rank] = rs.get(rank, 0) + int(rec.get("merged") or 1)
+            old = per_rank.get(rank)
+            if old is not None:
+                rs[rank] -= int(old.get("merged") or 1)
+                # at-least-once delivery: the executor re-queues a batch
+                # whose rpc failed after the scheduler applied it — back
+                # out the superseded record's aggregate contributions so
+                # re-ingest is idempotent
+                self._fold_totals(entry, old, live=True, sign=-1.0)
+                if old.get("recompiled"):
+                    entry["recompiles"] -= 1
+                for op, v in (old.get("ops") or {}).items():
+                    entry["ops"][op] = entry["ops"].get(op, 0.0) - float(v)
+            else:
+                entry["records"] += 1
+            per_rank[rank] = rec
+            self._fold_totals(entry, rec, live=True)
+            t = rec.get("t2") or rec.get("t0")
+            if t:
+                if entry["first_time"] is None:
+                    entry["first_time"] = t
+                entry["last_time"] = max(entry["last_time"] or 0.0, t)
+            if rec.get("recompiled"):
+                entry["recompiles"] += 1
+            for op, v in (rec.get("ops") or {}).items():
+                entry["ops"][op] = entry["ops"].get(op, 0.0) + float(v)
+            if len(per_rank) >= int(rec.get("world") or 1):
+                self._note_skew(entry, step, per_rank)
+
+    def _fold_totals(
+        self, entry: dict, rec: dict, live: bool = False, sign: float = 1.0
+    ) -> None:
+        """Run-level stage totals. Live records fold immediately (wall +
+        stages; ``sign=-1`` backs a superseded duplicate out); eviction
+        folds only what ingest could not know then — nothing, so evicted
+        records are a no-op beyond the counter. Kept as one seam so a
+        future late-computed stage folds here."""
+        if not live:
+            return
+        for k, v in (rec.get("stages") or {}).items():
+            if k in entry["totals"]:
+                entry["totals"][k] += sign * float(v or 0.0)
+        entry["wall_ms_total"] += sign * float(rec.get("wall_ms") or 0.0)
+
+    def _note_skew(self, entry: dict, step, per_rank: Dict[int, dict]) -> None:
+        """All ranks reported this step: attribute cross-rank skew from
+        the step-boundary timestamps. The skew is STEP-LOCAL — each
+        rank's loop span (step start ``t0`` to pre-report ``t1``) against
+        the longest rank's — so drift a rank carried INTO the step (free-
+        running loops with no collectives pull apart across steps; a raw
+        ``t1_max - t1`` would relabel whole steps) never compounds. The
+        rank with the longest loop span is the straggler; every other
+        rank's collectives waited the difference for it, time that was
+        sitting inside its measured compute residual — move it, capped at
+        that residual so the per-rank stage sum stays an invariant."""
+        loops = {}
+        for r, rec in per_rank.items():
+            t0, t1 = rec.get("t0"), rec.get("t1")
+            if t0 is not None and t1 is not None:
+                loops[r] = max(0.0, (t1 - t0) * 1e3)
+        if len(loops) < 2:
+            return
+        loop_max = max(loops.values())
+        straggler = max(loops, key=lambda r: loops[r])
+        skew_ms = 0.0
+        for r, rec in per_rank.items():
+            loop_ms = loops.get(r)
+            if loop_ms is None:
+                continue
+            stages = rec.setdefault("stages", {})
+            prev = float(stages.get("collective_wait_ms") or 0.0)
+            pool = float(stages.get("compute_ms") or 0.0) + prev
+            wait_ms = min(max(0.0, loop_max - loop_ms), pool)
+            skew_ms = max(skew_ms, wait_ms)
+            stages["collective_wait_ms"] = round(wait_ms, 3)
+            stages["compute_ms"] = round(max(0.0, pool - wait_ms), 3)
+            entry["totals"]["collective_wait_ms"] += wait_ms - prev
+            entry["totals"]["compute_ms"] -= min(
+                wait_ms - prev, entry["totals"]["compute_ms"]
+            )
+            rec["straggler"] = r == straggler
+        entry["skew"][step] = {
+            "skew_ms": round(skew_ms, 3),
+            "straggler_rank": straggler,
+        }
+        entry["max_skew_ms"] = max(entry["max_skew_ms"], skew_ms)
+        # bounded alongside the step table
+        while len(entry["skew"]) > self._max_steps():
+            entry["skew"].pop(next(iter(entry["skew"])), None)
+        try:
+            from ray_tpu_torch.util.metrics import Gauge, Histogram
+
+            global _head_metrics
+            if _head_metrics is None:
+                _head_metrics = {
+                    "skew": Histogram(
+                        "ray_tpu_torch_train_rank_skew_seconds",
+                        "cross-rank step-boundary skew (time the earliest "
+                        "rank's collectives waited for the straggler rank)",
+                        tag_keys=("run",),
+                    ),
+                    "straggler": Gauge(
+                        "ray_tpu_torch_train_straggler_rank",
+                        "rank whose pre-report timestamp was latest on the "
+                        "most recent fully-reported step (the rank the "
+                        "others waited on; joinable with the STRAGGLER "
+                        "watchdog events)",
+                        tag_keys=("run",),
+                    ),
+                }
+            _head_metrics["skew"].observe(
+                skew_ms / 1e3, tags={"run": entry["run"]}
+            )
+            _head_metrics["straggler"].set(
+                straggler, tags={"run": entry["run"]}
+            )
+        except Exception:
+            pass
+
+    def note_meta(self, run: str, meta: dict) -> None:
+        """Merge executor-pushed run metadata (goodput stats, downtime
+        ledger, world size, status) — the ``train_run_meta`` rpc."""
+        if not run:
+            return
+        with self._lock:
+            entry = self._run_entry(str(run))
+            entry["meta"].update(meta or {})
+            if meta and meta.get("world_size"):
+                entry["world"] = max(entry["world"], int(meta["world_size"]))
+
+    # -- reads -------------------------------------------------------------
+
+    def list_runs(self) -> List[dict]:
+        with self._lock:
+            out = []
+            for entry in self._runs.values():
+                meta = entry["meta"]
+                gp = meta.get("goodput") or {}
+                out.append(
+                    {
+                        "run": entry["run"],
+                        "world": entry["world"],
+                        "steps": self._steps_seen(entry),
+                        "records": entry["records"],
+                        "recompiles": entry["recompiles"],
+                        "goodput": gp.get("goodput"),
+                        "downtime_s": round(
+                            sum(
+                                e.get("seconds", 0.0)
+                                for e in meta.get("downtime_ledger") or ()
+                            ),
+                            3,
+                        ),
+                        "status": meta.get("status", "running"),
+                        "data_wait_ratio": self._ratio(entry, "data_wait_ms"),
+                        "max_skew_ms": round(entry["max_skew_ms"], 3),
+                        "first_time": entry["first_time"],
+                        "last_time": entry["last_time"],
+                    }
+                )
+            return list(reversed(out))  # newest-registered first
+
+    @staticmethod
+    def _steps_seen(entry: dict) -> int:
+        return max(entry["rank_steps"].values(), default=0)
+
+    @staticmethod
+    def _ratio(entry: dict, stage: str) -> Optional[float]:
+        wall = entry["wall_ms_total"]
+        if not wall:
+            return None
+        return round(entry["totals"].get(stage, 0.0) / wall, 4)
+
+    def get_run(self, run: str, max_steps: Optional[int] = None) -> Optional[dict]:
+        with self._lock:
+            entry = self._runs.get(str(run))
+            if entry is None:
+                return None
+            steps_items = list(entry["steps"].items())
+            if max_steps:
+                steps_items = steps_items[-int(max_steps):]
+            return {
+                "run": entry["run"],
+                "world": entry["world"],
+                "steps_seen": self._steps_seen(entry),
+                "rank_steps": {
+                    str(r): n for r, n in entry["rank_steps"].items()
+                },
+                "evicted_steps": entry["evicted_steps"],
+                "records": entry["records"],
+                "recompiles": entry["recompiles"],
+                "totals": {k: round(v, 3) for k, v in entry["totals"].items()},
+                "wall_ms_total": round(entry["wall_ms_total"], 3),
+                "ops": {k: round(v, 3) for k, v in entry["ops"].items()},
+                "skew": dict(entry["skew"]),
+                "max_skew_ms": round(entry["max_skew_ms"], 3),
+                "first_time": entry["first_time"],
+                "last_time": entry["last_time"],
+                "meta": dict(entry["meta"]),
+                "steps": [
+                    {
+                        "step": step,
+                        "ranks": {
+                            str(r): dict(rec) for r, rec in per_rank.items()
+                        },
+                    }
+                    for step, per_rank in steps_items
+                ],
+            }
+
+
+_head_metrics: Optional[Dict[str, Any]] = None
+
+
+# ---------------------------------------------------------------------------
+# timeline view (ray_tpu_torch.train_timeline / CLI rendering)
+# ---------------------------------------------------------------------------
+
+_BAR_CHARS = {
+    "data_wait_ms": "d",
+    "host_to_device_ms": "h",
+    "compile_ms": "J",
+    "compute_ms": "#",
+    "collective_wait_ms": "w",
+    "checkpoint_stall_ms": "c",
+    "other_ms": ".",
+}
+
+
+class TrainTimeline:
+    """One run's step-time attribution, renderable as a per-rank step
+    waterfall (``summary()``) or consumed as a dict (``to_dict()``)."""
+
+    def __init__(self, data: dict):
+        self.data = data or {}
+
+    @property
+    def run(self) -> str:
+        return self.data.get("run", "?")
+
+    def to_dict(self) -> dict:
+        return dict(self.data)
+
+    def step_count(self) -> int:
+        return int(self.data.get("steps_seen") or 0)
+
+    def stage_shares(self) -> Dict[str, float]:
+        """Stage -> fraction of total recorded step wall (all ranks)."""
+        wall = float(self.data.get("wall_ms_total") or 0.0)
+        if not wall:
+            return {}
+        return {
+            k.replace("_ms", ""): round(v / wall, 4)
+            for k, v in (self.data.get("totals") or {}).items()
+        }
+
+    @staticmethod
+    def _bar(stages: Dict[str, float], wall_ms: float, width: int = 28) -> str:
+        if wall_ms <= 0:
+            return " " * width
+        out = []
+        for key in _STAGE_KEYS:
+            n = int(round(width * float(stages.get(key) or 0.0) / wall_ms))
+            out.append(_BAR_CHARS[key] * n)
+        bar = "".join(out)[:width]
+        return bar + " " * (width - len(bar))
+
+    def summary(self, max_steps: int = 20) -> str:
+        d = self.data
+        if not d:
+            return "no step records for this run"
+        meta = d.get("meta") or {}
+        gp = meta.get("goodput") or {}
+        out = [
+            f"train run {d.get('run')}  world={d.get('world')}  "
+            f"steps={d.get('steps_seen')}  recompiles={d.get('recompiles')}"
+            + (
+                f"  goodput={gp['goodput']:.3f}"
+                if gp.get("goodput") is not None
+                else ""
+            )
+        ]
+        shares = self.stage_shares()
+        if shares:
+            out.append(
+                "stage shares: "
+                + "  ".join(
+                    f"{k}={v * 100:.1f}%"
+                    for k, v in shares.items()
+                    if v >= 0.0005
+                )
+            )
+        ops = d.get("ops") or {}
+        if ops:
+            out.append(
+                "ingest stalls by operator: "
+                + "  ".join(
+                    f"{op}={ms:.0f}ms"
+                    for op, ms in sorted(ops.items(), key=lambda kv: -kv[1])
+                )
+            )
+        ledger = meta.get("downtime_ledger") or []
+        if ledger:
+            total = sum(e.get("seconds", 0.0) for e in ledger)
+            out.append(f"downtime ledger ({total:.2f}s attributed):")
+            for e in ledger:
+                out.append(
+                    f"  {e.get('cause', '?'):<16} {e.get('seconds', 0.0):8.2f}s"
+                    + (f"  {e['detail']}" if e.get("detail") else "")
+                )
+        steps = (d.get("steps") or [])[-max_steps:]
+        if steps:
+            legend = " ".join(
+                f"{c}={k.replace('_ms', '')}" for k, c in _BAR_CHARS.items()
+            )
+            out.append(f"step waterfall (last {len(steps)}; {legend}):")
+        for srec in steps:
+            step = srec.get("step")
+            skew = (d.get("skew") or {}).get(step) or {}
+            for r in sorted(srec.get("ranks") or {}, key=int):
+                rec = srec["ranks"][r]
+                stages = rec.get("stages") or {}
+                wall = float(rec.get("wall_ms") or 0.0)
+                mark = (
+                    " <- straggler"
+                    if skew and int(r) == skew.get("straggler_rank")
+                    and skew.get("skew_ms", 0) > 0
+                    else ""
+                )
+                bd = "  ".join(
+                    f"{k.replace('_ms', '')}={float(stages.get(k) or 0):.0f}"
+                    for k in _STAGE_KEYS
+                    if float(stages.get(k) or 0.0) >= 0.5
+                )
+                flag = " RECOMPILED" if rec.get("recompiled") else ""
+                out.append(
+                    f"  step {step:>5} rank {r} "
+                    f"|{self._bar(stages, wall)}| {wall:8.1f}ms  "
+                    f"[{bd}]{flag}{mark}"
+                )
+        return "\n".join(out)

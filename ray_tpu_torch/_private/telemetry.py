@@ -1,0 +1,823 @@
+"""Unified telemetry plane: per-process event buffer + batched background flush.
+
+Parity: the reference's ``TaskEventBuffer`` (``src/ray/core_worker/
+task_event_buffer.h:206``) -> ``GcsTaskManager`` pipeline plus the metrics
+agent's batched export (``python/ray/_private/metrics_agent.py``). Every
+process (driver, workers, serve replicas) accumulates three kinds of
+records in one lock-light ring buffer:
+
+* **task lifecycle events** — worker-side RUNNING/FINISHED/FAILED
+  transitions with real pids and wall-clock timestamps (the scheduler
+  records the head-side SUBMITTED/QUEUED/DISPATCHED half directly);
+* **profile spans** — ``ray_tpu_torch._private.profiling.profile`` sections,
+  carrying the active trace context so spans form one tree across
+  processes;
+* **metric snapshots** — ``ray_tpu_torch.util.metrics`` Counter/Gauge/Histogram
+  updates, coalesced last-writer-wins per metric so one interval produces
+  at most one KV write per metric no matter how many records landed.
+
+A background thread flushes the buffer every ``metrics_report_interval_ms``
+(the previously-unused knob) as a single ``telemetry_batch`` message to the
+scheduler, which merges events into ``_task_events`` and metric snapshots
+into the GCS KV. Overflow beyond ``task_event_buffer_max`` is *counted*,
+never silent: the per-process drop count rides every batch and aggregates
+into the ``ray_tpu_torch_telemetry_dropped_total`` series.
+
+Read-your-writes: ``timeline()`` / ``prometheus_text()`` force a
+cluster-wide flush first (``Scheduler.request_telemetry_flush``), so reads
+are deterministic without sleeps despite the batching.
+"""
+
+from __future__ import annotations
+
+import collections
+import os
+import threading
+import time
+from typing import Dict, List, Optional, Tuple
+
+_DEFAULT_INTERVAL_MS = 1000
+_DEFAULT_CAPACITY = 100_000
+
+
+def _runtime():
+    """The connected runtime, or None (never raises)."""
+    from ray_tpu_torch._private import worker as worker_mod
+
+    rt = worker_mod._worker_runtime
+    if rt is not None:
+        return rt
+    return worker_mod._driver
+
+
+def enabled() -> bool:
+    """Whether the event pipeline is on (``telemetry_enabled`` flag). An
+    unconnected process reads as disabled — there is nowhere to flush to."""
+    rt = _runtime()
+    if rt is None:
+        return False
+    cfg = getattr(rt, "config", None)
+    return bool(getattr(cfg, "telemetry_enabled", True))
+
+
+class TelemetryBuffer:
+    """Lock-light ring buffer with explicit dropped-event accounting.
+
+    The lock is held only for O(1) append/drain bookkeeping; batch
+    serialization and the pipe write happen outside it.
+    """
+
+    def __init__(self, capacity: Optional[int] = None):
+        # None = resolve task_event_buffer_max from the runtime config on
+        # first use (the module singleton exists before init() runs)
+        self._cap = capacity
+        self._lock = threading.Lock()
+        self._events: collections.deque = collections.deque()
+        self._spans: collections.deque = collections.deque()
+        # structured worker log lines (the forensics plane: one record per
+        # stdout/stderr line, tagged with task/actor ids) — batched with the
+        # same cadence instead of one pipe send per print
+        self._logs: collections.deque = collections.deque()
+        # cluster events recorded OUTSIDE the scheduler (serve replicas,
+        # library code); merged into the scheduler's event log on flush
+        self._cluster_events: collections.deque = collections.deque()
+        # object provenance records (memory plane: one per store-backed
+        # put / task return / stream item — see _private/memplane.py);
+        # merged into the scheduler's bounded provenance index on flush
+        self._objects: collections.deque = collections.deque()
+        # per-(run, rank, step) training step records (step plane: one per
+        # train.report boundary — see _private/stepplane.py); merged into
+        # the scheduler's bounded per-run StepIndex on flush
+        self._train_steps: collections.deque = collections.deque()
+        # transfer-plane read records (peer-arena reads / spill restores —
+        # paths with no completion message to ride; see
+        # _private/netplane.py); merged into the scheduler's link ledger
+        self._transfers: collections.deque = collections.deque()
+        # name -> (kind, description, data snapshot): last writer wins, so
+        # N records within one interval flush as ONE write per metric
+        self._metrics: Dict[str, Tuple[str, str, dict]] = {}
+        # continuous-profiler stack samples, pre-aggregated per process:
+        # (task_id, trace_id, stack) -> count. Bounded by the same capacity;
+        # overflow increments the shared dropped counters
+        self._samples: Dict[Tuple, int] = {}
+        self._dropped_pending = 0  # reported (and reset) with the next batch
+        self._dropped_total = 0  # cumulative, for local inspection/tests
+        self._flushes = 0
+        self._wake = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+
+    # -- recording ---------------------------------------------------------
+
+    def _capacity(self) -> int:
+        cap = self._cap
+        if cap is not None:
+            return cap
+        rt = _runtime()
+        cfg = getattr(rt, "config", None)
+        cap = getattr(cfg, "task_event_buffer_max", None)
+        if cap is None:
+            return _DEFAULT_CAPACITY  # not connected yet: don't cache
+        self._cap = int(cap)
+        return self._cap
+
+    def record_event(self, ev: dict) -> None:
+        with self._lock:
+            if len(self._events) + len(self._spans) >= self._capacity():
+                self._dropped_pending += 1
+                self._dropped_total += 1
+                return
+            self._events.append(ev)
+
+    def record_span(self, span: dict) -> None:
+        with self._lock:
+            if len(self._events) + len(self._spans) >= self._capacity():
+                self._dropped_pending += 1
+                self._dropped_total += 1
+                return
+            self._spans.append(span)
+
+    def record_log(self, rec: dict) -> None:
+        with self._lock:
+            if len(self._logs) >= self._capacity():
+                self._dropped_pending += 1
+                self._dropped_total += 1
+                return
+            self._logs.append(rec)
+
+    def record_cluster_event(self, ev: dict) -> None:
+        with self._lock:
+            if len(self._cluster_events) >= self._capacity():
+                self._dropped_pending += 1
+                self._dropped_total += 1
+                return
+            self._cluster_events.append(ev)
+
+    def record_object_event(self, rec) -> None:
+        """One (oid_bin, size, kind, callsite, trace_id, t) provenance
+        tuple (memory plane)."""
+        with self._lock:
+            if len(self._objects) >= self._capacity():
+                self._dropped_pending += 1
+                self._dropped_total += 1
+                return
+            self._objects.append(rec)
+
+    def record_train_step(self, rec) -> None:
+        """One per-rank training step record (step plane; compact
+        positional tuple — see ``stepplane.decode_record``)."""
+        with self._lock:
+            if len(self._train_steps) >= self._capacity():
+                self._dropped_pending += 1
+                self._dropped_total += 1
+                return
+            self._train_steps.append(rec)
+
+    def record_transfer(self, rec) -> None:
+        """One (path, oid_bin, bytes, wire_s, t0, src_shm_dir, trace_id)
+        read record (transfer plane; size-floored by the caller)."""
+        with self._lock:
+            if len(self._transfers) >= self._capacity():
+                self._dropped_pending += 1
+                self._dropped_total += 1
+                return
+            self._transfers.append(rec)
+
+    def record_metric(self, name: str, kind: str, description: str, data: dict) -> None:
+        with self._lock:
+            self._metrics[name] = (kind, description, data)
+
+    def record_samples(self, counts: Dict[Tuple, int]) -> None:
+        """Merge one sampler sweep's (task, trace, stack) -> count map."""
+        with self._lock:
+            samples = self._samples
+            cap = self._capacity()
+            for key, n in counts.items():
+                cur = samples.get(key)
+                if cur is None and len(samples) >= cap:
+                    # count every dropped SAMPLE, not just the key — matches
+                    # the scheduler-side accounting in _ingest_telemetry
+                    self._dropped_pending += n
+                    self._dropped_total += n
+                    continue
+                samples[key] = (cur or 0) + n
+
+    @property
+    def dropped_total(self) -> int:
+        return self._dropped_total
+
+    @property
+    def flushes(self) -> int:
+        return self._flushes
+
+    # -- flushing ----------------------------------------------------------
+
+    def _drain(self) -> Optional[dict]:
+        with self._lock:
+            if not (
+                self._events
+                or self._spans
+                or self._logs
+                or self._cluster_events
+                or self._objects
+                or self._train_steps
+                or self._transfers
+                or self._metrics
+                or self._samples
+                or self._dropped_pending
+            ):
+                return None
+            events, self._events = list(self._events), collections.deque()
+            spans, self._spans = list(self._spans), collections.deque()
+            logs, self._logs = list(self._logs), collections.deque()
+            cluster_events, self._cluster_events = (
+                list(self._cluster_events),
+                collections.deque(),
+            )
+            objects, self._objects = list(self._objects), collections.deque()
+            train_steps, self._train_steps = (
+                list(self._train_steps),
+                collections.deque(),
+            )
+            transfers, self._transfers = (
+                list(self._transfers),
+                collections.deque(),
+            )
+            metrics, self._metrics = dict(self._metrics), {}
+            samples, self._samples = (
+                [(k, v) for k, v in self._samples.items()],
+                {},
+            )
+            dropped, self._dropped_pending = self._dropped_pending, 0
+        return {
+            "pid": os.getpid(),
+            "events": events,
+            "spans": spans,
+            "logs": logs,
+            "cluster_events": cluster_events,
+            "objects": objects,
+            "train_steps": train_steps,
+            "transfers": transfers,
+            "metrics": metrics,
+            "samples": samples,
+            "dropped": dropped,
+        }
+
+    def flush(self) -> bool:
+        """Drain and send one batch. On a failed send (runtime gone, pipe
+        dead) events and spans are re-counted as dropped — never silently —
+        while metric snapshots go back in the pending map (they are
+        cumulative state, so the next successful flush carries them)."""
+        batch = self._drain()
+        if batch is None:
+            return True
+        self._flushes += 1
+        if _send_batch(batch):
+            return True
+        lost = (
+            len(batch["events"])
+            + len(batch["spans"])
+            + len(batch["logs"])
+            + len(batch["cluster_events"])
+            + len(batch.get("objects") or ())
+            + len(batch.get("train_steps") or ())
+            + len(batch.get("transfers") or ())
+            # per-SAMPLE, not per-stack-key (matches record_samples and the
+            # scheduler-side accounting)
+            + sum(n for _k, n in batch.get("samples") or ())
+            + batch["dropped"]
+        )
+        with self._lock:
+            for name, snap in batch["metrics"].items():
+                self._metrics.setdefault(name, snap)  # newer snapshot wins
+            self._dropped_pending += lost
+            self._dropped_total += lost - batch["dropped"]
+        return False
+
+    def ensure_flusher(self) -> None:
+        if self._thread is not None and self._thread.is_alive():
+            return
+        t = threading.Thread(
+            target=self._run, name="ray_tpu_torch-telemetry", daemon=True
+        )
+        self._thread = t
+        t.start()
+
+    def wake(self) -> None:
+        self._wake.set()
+
+    def _interval_s(self) -> float:
+        rt = _runtime()
+        cfg = getattr(rt, "config", None)
+        ms = getattr(cfg, "metrics_report_interval_ms", _DEFAULT_INTERVAL_MS)
+        return max(0.01, (ms or _DEFAULT_INTERVAL_MS) / 1000.0)
+
+    def _run(self) -> None:
+        while True:
+            self._wake.wait(self._interval_s())
+            self._wake.clear()
+            try:
+                self.flush()
+            except Exception:
+                pass  # telemetry must never take a process down
+            try:
+                # memory plane: per-device CUDA allocator gauges, read
+                # only once user code has initialised CUDA (self-rate-limited)
+                from ray_tpu_torch._private import memplane as _memplane
+
+                _memplane.maybe_record_device_metrics()
+            except Exception:
+                pass
+
+
+def _send_batch(batch: dict) -> bool:
+    rt = _runtime()
+    if rt is None or getattr(rt, "closed", False):
+        return False
+    try:
+        scheduler = getattr(rt, "scheduler", None)
+        if scheduler is not None:  # in-process driver: post straight to loop
+            scheduler.post(("telemetry_batch", batch))
+        else:  # worker / remote driver: ride the command pipe (FIFO with
+            # task_done, so a task's telemetry lands before its result)
+            rt._send(("cmd", ("telemetry_batch", batch)))
+        return True
+    except Exception:
+        return False
+
+
+# --------------------------------------------------------------------------
+# per-process singleton surface
+# --------------------------------------------------------------------------
+
+_buffer = TelemetryBuffer()
+
+
+def get_buffer() -> TelemetryBuffer:
+    return _buffer
+
+
+def record_task_event(ev: dict) -> None:
+    if not enabled():
+        return
+    _buffer.record_event(ev)
+    _buffer.ensure_flusher()
+
+
+def record_span(span: dict) -> None:
+    if not enabled():
+        return
+    _buffer.record_span(span)
+    _buffer.ensure_flusher()
+
+
+def record_metric(name: str, kind: str, description: str, data: dict) -> None:
+    if not enabled():
+        return
+    _buffer.record_metric(name, kind, description, data)
+    _buffer.ensure_flusher()
+
+
+def record_log(rec: dict) -> None:
+    """One structured worker log line (forensics plane); batched."""
+    if not enabled():
+        return
+    _buffer.record_log(rec)
+    _buffer.ensure_flusher()
+
+
+def record_object_event(rec) -> None:
+    """One object-provenance tuple (memory plane); batched. The hot-path
+    caller (``memplane.record_object``) gates on ``memplane.enabled()``
+    and appends to the buffer directly; this wrapper is for cold paths."""
+    if not enabled():
+        return
+    _buffer.record_object_event(rec)
+    _buffer.ensure_flusher()
+
+
+def record_train_step(rec) -> None:
+    """One per-rank training step record (step plane; compact tuple);
+    batched. The hot caller (``stepplane.StepTimer.finalize_step``) gates
+    on ``stepplane.enabled`` and appends to the buffer directly; this
+    wrapper is for cold paths."""
+    if not enabled():
+        return
+    _buffer.record_train_step(rec)
+    _buffer.ensure_flusher()
+
+
+def record_cluster_event(
+    type: str,
+    message: str,
+    severity: str = "INFO",
+    source: str = "WORKER",
+    **extra,
+) -> None:
+    """Record a cluster event from a non-scheduler process (serve replicas,
+    library code); merged into the scheduler's event log with the next
+    telemetry batch. The scheduler records its own events directly via
+    ``Scheduler.record_cluster_event``."""
+    if not enabled():
+        return
+    ev = {
+        "time": time.time(),
+        "severity": severity,
+        "source": source,
+        "type": type,
+        "message": message,
+        "pid": os.getpid(),
+    }
+    ev.update(extra)
+    _buffer.record_cluster_event(ev)
+    _buffer.ensure_flusher()
+
+
+_SEV_ERROR_PREFIXES = ("ERROR", "CRITICAL", "FATAL", "Traceback (")
+_SEV_WARN_PREFIXES = ("WARNING", "WARN")
+
+
+def guess_severity(line: str, stream: str) -> str:
+    """Cheap severity heuristic for untagged stdout/stderr lines (parity:
+    the reference log monitor treating stderr as higher-signal)."""
+    stripped = line.lstrip()
+    for p in _SEV_ERROR_PREFIXES:
+        if stripped.startswith(p):
+            return "ERROR"
+    for p in _SEV_WARN_PREFIXES:
+        if stripped.startswith(p):
+            return "WARNING"
+    return "ERROR" if stream == "stderr" and "Error" in line else "INFO"
+
+
+def record_samples(counts: Dict[Tuple, int]) -> None:
+    """Merge one profiler sweep's (task, trace, stack) -> count map into the
+    batch pipeline (continuous-profiling plane)."""
+    if not counts or not enabled():
+        return
+    _buffer.record_samples(counts)
+    _buffer.ensure_flusher()
+
+
+def flush() -> bool:
+    """Synchronously flush this process's buffer (read paths, shutdown)."""
+    return _buffer.flush()
+
+
+# --------------------------------------------------------------------------
+# sliding-window latency quantiles with exemplar trace ids
+# --------------------------------------------------------------------------
+
+
+class LatencyWindow:
+    """Bounded sliding window of (ts, latency_ms, trace_id) samples.
+
+    Backs the per-job and per-deployment p50/p95/p99 series: quantiles are
+    computed at READ time over samples newer than ``window_s``, and the
+    slowest samples keep their trace ids as exemplars — a slow bucket links
+    straight to ``ray_tpu_torch.trace(trace_id)``. Appends are O(1) under a small
+    lock (request/finish hot paths); reads are O(n log n) on n <= max_samples.
+    """
+
+    __slots__ = ("_window_s", "_max", "_samples", "_lock", "count", "sum_ms")
+
+    def __init__(self, window_s: float = 60.0, max_samples: int = 4096):
+        self._window_s = float(window_s)
+        self._max = int(max_samples)
+        self._samples: collections.deque = collections.deque(maxlen=self._max)
+        self._lock = threading.Lock()
+        self.count = 0  # lifetime observations (not just the window)
+        self.sum_ms = 0.0
+
+    def observe(self, latency_ms: float, trace_id: Optional[str] = None,
+                ts: Optional[float] = None) -> None:
+        ts = time.time() if ts is None else ts
+        with self._lock:
+            self._samples.append((ts, float(latency_ms), trace_id))
+            self.count += 1
+            self.sum_ms += float(latency_ms)
+
+    def _live(self) -> List[Tuple[float, float, Optional[str]]]:
+        cutoff = time.time() - self._window_s
+        with self._lock:
+            return [s for s in self._samples if s[0] >= cutoff]
+
+    def snapshot(self, exemplars: int = 3) -> dict:
+        """{count, p50, p95, p99, max, exemplars: [{trace_id, latency_ms}]}
+        over the live window ({} quantiles when empty)."""
+        live = self._live()
+        out = {
+            "window_s": self._window_s,
+            "count": len(live),
+            "total_count": self.count,
+        }
+        if not live:
+            out.update({"p50": None, "p95": None, "p99": None, "max": None,
+                        "exemplars": []})
+            return out
+        vals = sorted(s[1] for s in live)
+
+        def q(p: float) -> float:
+            i = min(len(vals) - 1, max(0, int(round(p * (len(vals) - 1)))))
+            return round(vals[i], 3)
+
+        out.update({"p50": q(0.50), "p95": q(0.95), "p99": q(0.99),
+                    "max": round(vals[-1], 3)})
+        slowest = sorted(live, key=lambda s: s[1], reverse=True)
+        out["exemplars"] = [
+            {"trace_id": s[2], "latency_ms": round(s[1], 3)}
+            for s in slowest[: int(exemplars)]
+            if s[2]
+        ]
+        return out
+
+    def merge_from(self, samples) -> None:
+        """Fold another window's raw (ts, ms, trace_id) samples in
+        (controller-side per-deployment aggregation over replicas)."""
+        with self._lock:
+            for s in samples:
+                self._samples.append(tuple(s))
+                self.count += 1
+                self.sum_ms += float(s[1])
+
+    def raw(self) -> List[Tuple[float, float, Optional[str]]]:
+        return self._live()
+
+
+# --------------------------------------------------------------------------
+# bounded once-per-key event gate (watchdog / incident dedup)
+# --------------------------------------------------------------------------
+
+
+class EventDeduper:
+    """Bounded once-per-key-per-rearm event gate.
+
+    One helper behind every watchdog's "emit this event at most once per
+    key per re-arm window" rule (leak suspects, transfer stalls, slow
+    links, stalled launches, incident alerts) — each used to carry its own
+    ad-hoc stamp dict/set with divergent growth and clearing rules.
+
+    Semantics:
+      * ``should_fire(key)`` — True iff the key has never fired, or fired
+        more than ``rearm_s`` seconds ago (``rearm_s=None`` = fire-once
+        per key, ever). A True return stamps the key.
+      * ``key in deduper`` / ``mark(key)`` — split check/stamp for callers
+        that decide membership early but only stamp on an actual emit.
+      * bounded two ways: ``mark`` past ``max_keys`` evicts the
+        oldest-stamped key (an adversarial key stream cannot grow the
+        table), and ``prune(keep=...)`` applies the owning watchdog's
+        liveness rule (drop stamps for settled subjects), optionally only
+        for stamps older than ``stale_s``.
+
+    Single-threaded by design: every current caller runs on the scheduler
+    loop's 1 Hz maintenance pass.
+    """
+
+    __slots__ = ("_rearm_s", "_max", "_stamps")
+
+    def __init__(self, rearm_s: Optional[float] = None, max_keys: int = 1024):
+        self._rearm_s = None if rearm_s is None else float(rearm_s)
+        self._max = max(1, int(max_keys))
+        # insertion-ordered key -> monotonic stamp; re-marks move to end,
+        # so the front is always the oldest stamp (O(1) eviction)
+        self._stamps: "collections.OrderedDict[Any, float]" = (
+            collections.OrderedDict()
+        )
+
+    def __len__(self) -> int:
+        return len(self._stamps)
+
+    def __contains__(self, key) -> bool:
+        return key in self._stamps
+
+    def mark(self, key, now: Optional[float] = None) -> None:
+        """Stamp ``key`` as fired now (evicting the oldest past the cap)."""
+        now = time.monotonic() if now is None else now
+        if key in self._stamps:
+            del self._stamps[key]
+        elif len(self._stamps) >= self._max:
+            self._stamps.popitem(last=False)
+        self._stamps[key] = now
+
+    def discard(self, key) -> None:
+        self._stamps.pop(key, None)
+
+    def should_fire(self, key, now: Optional[float] = None) -> bool:
+        now = time.monotonic() if now is None else now
+        last = self._stamps.get(key)
+        if last is not None and (
+            self._rearm_s is None or now - last < self._rearm_s
+        ):
+            return False
+        self.mark(key, now)
+        return True
+
+    def prune(
+        self,
+        keep=None,
+        stale_s: Optional[float] = None,
+        now: Optional[float] = None,
+        over: int = 0,
+    ) -> int:
+        """Apply the owner's liveness rule: drop stamps whose key fails
+        ``keep(key)`` — but only stamps older than ``stale_s`` when given
+        (a just-fired stamp for a briefly-absent subject survives). With
+        ``over`` > 0 the sweep is skipped until the table exceeds that many
+        entries (the cheap "only bother when big" pattern the hand-rolled
+        copies used). Returns the number of dropped stamps."""
+        if over and len(self._stamps) <= over:
+            return 0
+        now = time.monotonic() if now is None else now
+        doomed = [
+            k
+            for k, t in self._stamps.items()
+            if (keep is None or not keep(k))
+            and (stale_s is None or now - t > stale_s)
+        ]
+        for k in doomed:
+            del self._stamps[k]
+        return len(doomed)
+
+
+def dropped_total() -> int:
+    return _buffer.dropped_total
+
+
+# --------------------------------------------------------------------------
+# chrome-trace construction (ray_tpu_torch.timeline backend)
+# --------------------------------------------------------------------------
+
+# lifecycle chain in causal order; phase names label the span ENDING at the
+# named state (SUBMITTED->QUEUED = dependency wait, etc.)
+_LIFECYCLE_ORDER = [
+    "SUBMITTED",
+    "QUEUED",
+    "DISPATCHED",
+    "RUNNING",
+    "FINISHED",
+    "FAILED",
+]
+_PHASE_NAME = {
+    "QUEUED": "deps",
+    "DISPATCHED": "queued",
+    "RUNNING": "dispatch",
+    "FINISHED": "run",
+    "FAILED": "run",
+}
+
+
+def build_chrome_trace(events: List[dict]) -> List[dict]:
+    """Convert the scheduler's merged task-event log into a chrome://tracing
+    event array: per-task lifecycle phase spans ("X"), instant markers for
+    every raw state transition ("i"), PROFILE spans, trace-context flow
+    links ("s"/"f"), and process/thread metadata ("M").
+
+    tids come from a stable first-seen registry (the seed's
+    ``hash(task_id) % 1000`` collided and changed across runs with hash
+    randomization). Every event carries ``args.state`` so consumers can
+    filter uniformly.
+    """
+    head_pid = os.getpid()
+    tids: Dict[str, int] = {}
+
+    def tid_of(task_id) -> int:
+        return tids.setdefault(task_id or "<driver>", len(tids) + 1)
+
+    out: List[dict] = []
+    by_task: Dict[str, List[dict]] = collections.defaultdict(list)
+    # span_id -> (pid, tid, ts_us) for trace-context flow binding
+    span_anchor: Dict[str, Tuple[int, int, float]] = {}
+    flow_links: List[Tuple[str, str]] = []  # (parent span_id, child span_id)
+
+    for e in events:
+        task_id = e.get("task_id")
+        tid = tid_of(task_id)
+        if e.get("type") == "PROFILE":
+            extra = e.get("extra") or {}
+            pid = e.get("pid") or head_pid
+            ts_us = (e.get("time") or 0.0) * 1e6
+            out.append(
+                {
+                    "cat": "PROFILE",
+                    "name": e.get("name", "span"),
+                    "pid": pid,
+                    "tid": tid,
+                    "ph": "X",
+                    "ts": ts_us,
+                    "dur": (e.get("duration_ms") or 0.0) * 1e3,
+                    "args": {"state": "PROFILE", "task_id": task_id, **extra},
+                }
+            )
+            span_id = extra.get("span_id")
+            if span_id:
+                span_anchor.setdefault(span_id, (pid, tid, ts_us))
+                if extra.get("parent_id"):
+                    flow_links.append((extra["parent_id"], span_id))
+            continue
+        by_task[task_id].append(e)
+        out.append(
+            {
+                "cat": e.get("type", "TASK"),
+                "name": e.get("name") or "task",
+                "pid": e.get("pid") or head_pid,
+                "tid": tid,
+                "ph": "i",
+                "s": "t",
+                "ts": (e.get("time") or 0.0) * 1e6,
+                "args": {"state": e.get("state"), "task_id": task_id},
+            }
+        )
+
+    # lifecycle phase spans: for each task, one "X" per consecutive pair of
+    # recorded states; worker-reported events (src=worker, real pid) win
+    # over the scheduler's head-side record of the same state
+    for task_id, evs in by_task.items():
+        best: Dict[str, dict] = {}
+        for e in evs:
+            state = e.get("state")
+            if state not in _PHASE_NAME and state != "SUBMITTED":
+                continue
+            cur = best.get(state)
+            e_worker = e.get("src") == "worker"
+            cur_worker = cur is not None and cur.get("src") == "worker"
+            if (
+                cur is None
+                or (e_worker and not cur_worker)
+                or (
+                    e_worker == cur_worker
+                    and (e.get("time") or 0.0) >= (cur.get("time") or 0.0)
+                )
+            ):
+                best[state] = e
+        chain = [s for s in _LIFECYCLE_ORDER if s in best]
+        tid = tid_of(task_id)
+        for prev_state, state in zip(chain, chain[1:]):
+            t0, t1 = best[prev_state]["time"], best[state]["time"]
+            ev = best[state]
+            out.append(
+                {
+                    "cat": "TASK_PHASE",
+                    "name": f"{ev.get('name') or 'task'}:{_PHASE_NAME.get(state, state.lower())}",
+                    "pid": ev.get("pid") or head_pid,
+                    "tid": tid,
+                    "ph": "X",
+                    "ts": t0 * 1e6,
+                    "dur": max(0.0, (t1 - t0) * 1e6),
+                    "args": {
+                        "state": state,
+                        "from": prev_state,
+                        "task_id": task_id,
+                    },
+                }
+            )
+
+    # trace-context parent links as chrome flow events (the visual arrows);
+    # args on the PROFILE spans carry the same ids for programmatic use
+    for parent_id, child_id in flow_links:
+        parent = span_anchor.get(parent_id)
+        child = span_anchor.get(child_id)
+        if parent is None or child is None:
+            continue
+        ppid, ptid, pts = parent
+        cpid, ctid, cts = child
+        out.append(
+            {
+                "cat": "trace",
+                "name": "trace_link",
+                "ph": "s",
+                "id": child_id,
+                "pid": ppid,
+                "tid": ptid,
+                "ts": pts,
+                "args": {"state": "TRACE"},
+            }
+        )
+        out.append(
+            {
+                "cat": "trace",
+                "name": "trace_link",
+                "ph": "f",
+                "bp": "e",
+                "id": child_id,
+                "pid": cpid,
+                "tid": ctid,
+                "ts": cts,
+                "args": {"state": "TRACE"},
+            }
+        )
+
+    # process metadata so chrome labels rows sensibly
+    pids = {e["pid"] for e in out if "pid" in e}
+    for pid in sorted(pids):
+        label = "driver+scheduler" if pid == head_pid else f"worker-{pid}"
+        out.append(
+            {
+                "cat": "__metadata",
+                "name": "process_name",
+                "ph": "M",
+                "pid": pid,
+                "tid": 0,
+                "ts": 0,
+                "args": {"state": "META", "name": label},
+            }
+        )
+    return out

@@ -1,0 +1,762 @@
+"""Driver runtime and the global worker dispatch.
+
+Design parity: ``python/ray/_private/worker.py`` — the module-level
+``global_worker`` that ``ray.get/put/wait/remote`` route through, in driver
+mode (owns the cluster) or worker mode (connected via the task loop in
+``worker_process.py``). ObjectRef mirrors ``python/ray/includes/object_ref``:
+the future handle with owner-side reference counting
+(``src/ray/core_worker/reference_count.h:61`` — here: counts driver handles
+and in-flight task args; objects are freed when the count drops to zero).
+"""
+
+from __future__ import annotations
+
+import os
+import pickle
+import threading
+import time
+from typing import Any, Dict, List, Optional, Tuple
+
+import cloudpickle
+
+from ray_tpu_torch import exceptions as exc
+from ray_tpu_torch._private import serialization
+from ray_tpu_torch._private.config import Config
+from ray_tpu_torch._private.ids import ActorID, JobID, ObjectID, TaskID, _Counter
+from ray_tpu_torch._private.node import Node
+from ray_tpu_torch._private.task_spec import Arg, TaskSpec, TaskType
+
+_global_lock = threading.RLock()
+_driver: Optional["DriverRuntime"] = None
+_worker_runtime = None  # set in worker processes
+
+
+def _set_worker_runtime(rt) -> None:
+    global _worker_runtime
+    _worker_runtime = rt
+
+
+def get_runtime():
+    """The active runtime: WorkerRuntime inside workers, DriverRuntime else."""
+    if _worker_runtime is not None:
+        return _worker_runtime
+    if _driver is None:
+        raise RuntimeError("ray_tpu_torch.init() has not been called")
+    return _driver
+
+
+def is_initialized() -> bool:
+    return _worker_runtime is not None or _driver is not None
+
+
+class ObjectRef:
+    """Handle to a (possibly pending) object. Parity: ``ray.ObjectRef``."""
+
+    __slots__ = ("_id", "_owned", "__weakref__")
+
+    def __init__(self, oid: ObjectID, _owned: bool = False):
+        self._id = oid
+        self._owned = _owned
+        if _owned:
+            rt = _worker_runtime if _worker_runtime is not None else _driver
+            if rt is not None:
+                rt.add_refs([oid])
+
+    def id(self) -> ObjectID:
+        return self._id
+
+    def hex(self) -> str:
+        return self._id.hex()
+
+    def binary(self) -> bytes:
+        return self._id.binary()
+
+    def __hash__(self):
+        return hash(self._id)
+
+    def __eq__(self, other):
+        return isinstance(other, ObjectRef) and other._id == self._id
+
+    def __repr__(self):
+        return f"ObjectRef({self._id.hex()})"
+
+    def __reduce__(self):
+        # A deserialized ref registers as a borrower in its process (parity:
+        # the borrower sets of reference_count.h:61): the object stays alive
+        # while any process holds a live handle, not just the driver.
+        #
+        # Acknowledged handoff: the sender takes a TOKEN transit pin here.
+        # Without it, a worker that puts an object and returns the ref could
+        # GC its local handle (count -> 0 => free) before the consumer's
+        # borrow registration arrives. The pin is released by the FIRST
+        # deserialization's ack (its own borrow is posted first on the same
+        # ordered channel, so the count never dips) — NOT by a clock: a blob
+        # parked in a queue or slow channel for minutes stays pinned until
+        # consumed. Later deserializations of the same blob re-post the same
+        # token; the scheduler ignores already-released tokens, matching
+        # reference semantics (a ref re-materialized after every live handle
+        # died may be dead).
+        rt = _worker_runtime if _worker_runtime is not None else _driver
+        token = os.urandom(12)
+        if rt is not None and not getattr(rt, "closed", False):
+            try:
+                rt.transit_pin([(self._id, token)])
+            except Exception:
+                pass
+        return (_deserialize_ref_tok, (self._id, token))
+
+    def __del__(self):
+        if not self._owned:
+            return
+        rt = _worker_runtime if _worker_runtime is not None else _driver
+        if rt is not None and not getattr(rt, "closed", False):
+            try:
+                rt.remove_refs([self._id])
+            except Exception:
+                pass
+
+    def future(self):
+        """Return a concurrent.futures.Future resolving to the value."""
+        import concurrent.futures
+
+        fut: concurrent.futures.Future = concurrent.futures.Future()
+
+        def run():
+            try:
+                fut.set_result(get_runtime().get_objects([self._id])[0])
+            except Exception as e:  # noqa: BLE001
+                fut.set_exception(e)
+
+        threading.Thread(target=run, daemon=True).start()
+        return fut
+
+    def __await__(self):
+        import asyncio
+
+        loop = asyncio.get_event_loop()
+        fut = loop.run_in_executor(None, lambda: get_runtime().get_objects([self._id])[0])
+        return fut.__await__()
+
+
+def _deserialize_ref(oid: ObjectID) -> "ObjectRef":
+    """Unpickle an ObjectRef as a counted borrow when a runtime is connected
+    (worker or driver); an unconnected process gets an inert handle."""
+    connected = _worker_runtime is not None or _driver is not None
+    return ObjectRef(oid, _owned=connected)
+
+
+def _deserialize_ref_tok(oid: ObjectID, token: bytes) -> "ObjectRef":
+    """Counted borrow + transit-pin ack: the borrow registration posts first
+    (ObjectRef.__init__), the token release after, on the same ordered
+    channel — the object is continuously covered through the handoff."""
+    connected = _worker_runtime is not None or _driver is not None
+    ref = ObjectRef(oid, _owned=connected)
+    if connected:
+        rt = _worker_runtime if _worker_runtime is not None else _driver
+        try:
+            rt.transit_release([(oid, token)])
+        except Exception:
+            pass
+    return ref
+
+
+def _deserialize_ref_transit(oid: ObjectID) -> "ObjectRef":
+    # retained for unpickling blobs produced by older builds
+    return _deserialize_ref(oid)
+
+
+class ObjectRefGenerator:
+    """Iterator over a streaming generator task's returns.
+
+    Parity: ``ObjectRefGenerator`` (``python/ray/_raylet.pyx:277``).
+    """
+
+    def __init__(self, task_id: TaskID, count_ref: ObjectRef):
+        self._task_id = task_id
+        self._count_ref = count_ref
+        self._index = 0
+        self._total: Optional[int] = None
+
+    def __iter__(self):
+        return self
+
+    def __next__(self) -> ObjectRef:
+        return self.next_ref(None)
+
+    def next_ref(self, timeout_s: "Optional[float]" = None) -> ObjectRef:
+        """The next item's ref, optionally bounded: raises GetTimeoutError
+        once ``timeout_s`` elapses without the producer committing an item
+        (serve's per-item stream timeout rides this — a hung generator task
+        must not park its consumer forever). ``None`` blocks indefinitely.
+        """
+        # push-based: block on the runtime's wait plane (pull registration in
+        # workers, memory-store condition vars in the driver) instead of
+        # spinning on object_ready (polling at 1 ms here was slower)
+        import time as _time
+
+        rt = get_runtime()
+        deadline = None if timeout_s is None else _time.monotonic() + timeout_s
+        next_oid = ObjectID.for_return(self._task_id, self._index + 1)
+        count_oid = self._count_ref.id()
+        while True:
+            slice_s = 30.0
+            if deadline is not None:
+                slice_s = min(slice_s, max(0.0, deadline - _time.monotonic()))
+            if self._total is None:
+                ready, _ = rt.wait([next_oid, count_oid], 1, timeout=slice_s)
+                if count_oid in ready and not rt.object_ready(next_oid):
+                    self._total = rt.get_objects([count_oid])[0]
+            else:
+                if self._index >= self._total:
+                    raise StopIteration
+                rt.wait([next_oid], 1, timeout=slice_s)
+            if rt.object_ready(next_oid):
+                self._index += 1
+                # owned: the consumer's ref holds the item alive (direct
+                # plane: bumps the caller-local count so release_stream
+                # can tell consumed items from abandoned ones)
+                return ObjectRef(next_oid, _owned=True)
+            if self._total is not None and self._index >= self._total:
+                raise StopIteration
+            if deadline is not None and _time.monotonic() >= deadline:
+                from ray_tpu_torch import exceptions as exc
+
+                raise exc.GetTimeoutError(
+                    f"stream item {self._index + 1} not produced within "
+                    f"{timeout_s:g}s"
+                )
+
+    def __del__(self):
+        # abandoned mid-stream (or fully drained): let the runtime drop
+        # locally-owned items that were committed but never consumed
+        try:
+            rt = get_runtime()
+            release = getattr(rt, "release_stream", None)
+            if release is not None:
+                release(self._task_id)
+        except Exception:
+            pass
+
+
+class DriverRuntime:
+    """The driver-side CoreWorker equivalent."""
+
+    def __init__(self, node: Node):
+        self.node = node
+        self.scheduler = node.scheduler
+        self.store = node.store_client
+        self.config = node.config
+        self.serde = serialization.get_context()
+        # multi-tenant job plane: a driver launched on behalf of a
+        # submitted job (JobSupervisor entrypoints) binds its work to that
+        # job's arbitration record via the environment; the interactive
+        # default stays job 1
+        self.job_id = JobID.from_int(1)
+        env_job = os.environ.get("RAY_TPU_TORCH_JOB_ID")
+        if env_job:
+            try:
+                self.job_id = JobID.from_hex(env_job)
+            except ValueError:
+                pass
+        self.task_id = TaskID.for_driver(self.job_id)
+        self._put_counter = _Counter()
+        self.closed = False
+        # direct actor-call plane (parity: actor_task_submitter.h:73): calls
+        # go caller->worker; results commit into the SHARED memory store from
+        # the pump thread, so the normal get/wait planes see them — the
+        # scheduler loop is only touched to wake parked dep/pull waiters
+        self._direct = None
+        if getattr(self.config, "direct_actor_calls", True):
+            from ray_tpu_torch._private.direct_actor import DirectActorClient
+
+            self._direct = DirectActorClient(
+                self,
+                self.scheduler.memory_store,
+                self._direct_on_commit,
+                shared_store=True,
+            )
+        # continuous sampling profiler (driver half; workers start their
+        # own from the propagated config)
+        if getattr(self.config, "telemetry_enabled", True):
+            from ray_tpu_torch._private import sampler as _sampler
+
+            _sampler.ensure_running(self.config)
+
+    # -- refs --------------------------------------------------------------
+    # Ref ops post individually (no driver-side batching): a buffer would
+    # need a lock that ObjectRef.__del__ can re-enter via GC (deadlock) and
+    # delays adds past the transit-pin TTL. The cheap part of posting —
+    # skipping the wakeup syscall when the loop is already signaled — lives
+    # in Scheduler.post instead. Refs to direct-call results are counted in
+    # process (this driver OWNS them) and never touch the loop until the
+    # ref escapes to another process (ensure_published escalation).
+
+    def add_refs(self, oids):
+        if self._direct is not None:
+            oids = self._direct.add_refs(oids)
+            if not oids:
+                return
+        self.scheduler.post(("ref_batch", [(1, oid) for oid in oids]))
+
+    def remove_refs(self, oids):
+        if self._direct is not None:
+            oids = self._direct.remove_refs(oids)
+            if not oids:
+                return
+        self.scheduler.post(("ref_batch", [(-1, oid) for oid in oids]))
+
+    def release_stream(self, task_id):
+        if self._direct is not None:
+            self._direct.release_stream(task_id)
+
+    # -- pubsub (parity: GCS pubsub subscriber surface) --------------------
+
+    def pubsub_publish(self, channel: str, blob: bytes) -> None:
+        self.scheduler.post(("pubsub_publish", channel, blob))
+
+    def pubsub_subscribe(self, channel: str):
+        import queue as _queue
+
+        q: "_queue.SimpleQueue" = _queue.SimpleQueue()
+        self.scheduler.post(("pubsub_sub", channel, q))
+        # loop-ordered barrier (see WorkerRuntime.pubsub_subscribe)
+        try:
+            self.scheduler_rpc("pubsub_sync", ())
+        except Exception:
+            pass
+        return q
+
+    def pubsub_unsubscribe(self, channel: str, q) -> None:
+        self.scheduler.post(("pubsub_unsub", channel, q))
+
+    def transit_pin(self, pairs):
+        if self._direct is not None:
+            self._direct.ensure_published([oid for oid, _ in pairs])
+        self.scheduler.post(("ref_batch", [(2, oid, tok) for oid, tok in pairs]))
+
+    def transit_release(self, pairs):
+        self.scheduler.post(("ref_batch", [(3, oid, tok) for oid, tok in pairs]))
+
+    # -- direct-plane runtime hooks (see DirectActorClient) ----------------
+
+    def pin_external(self, oids):
+        self.scheduler.post(("ref_batch", [(1, oid) for oid in oids]))
+
+    def unpin_external(self, oids):
+        self.scheduler.post(("ref_batch", [(-1, oid) for oid in oids]))
+
+    def publish_external(self, items):
+        self.scheduler.post(("direct_publish", list(items)))
+
+    def handle_count_external(self, actor_id, delta: int):
+        self.scheduler.post(("handle_count", actor_id, delta))
+
+    def legacy_submit(self, spec: TaskSpec):
+        arg_refs = spec.arg_ref_ids()
+        if arg_refs:
+            self.ensure_published(arg_refs)
+            # pin at the HEAD (not the local owned table): the head releases
+            # this exact pin at task completion — a locally-routed pin would
+            # leave its unpin unmatched head-side
+            self.pin_external(arg_refs)
+        self.scheduler.submit(spec)
+
+    def ensure_published(self, oids):
+        if self._direct is not None and oids:
+            self._direct.ensure_published(oids)
+
+    def _direct_on_commit(self, oids):
+        # results are already visible in the shared memory store; the loop
+        # only needs a nudge when something is PARKED on them (a WAITING_DEPS
+        # task or a worker pull). Both dicts are only mutated by the loop,
+        # and the loop re-checks the store after parking (see _handle_pull /
+        # _on_submit), so a racy emptiness probe here cannot lose a wake.
+        s = self.scheduler
+        if s._dep_waiters or s._pull_waiters:
+            s.post(("direct_wake", list(oids)))
+
+
+    # -- object plane ------------------------------------------------------
+
+    def put(self, value) -> ObjectID:
+        if isinstance(value, ObjectRef):
+            raise TypeError("Calling put() on an ObjectRef is not allowed")
+        oid = ObjectID.for_put(self.task_id, self._put_counter.next())
+        size = self.store.put_serialized(oid, self.serde, value)
+        self.scheduler.memory_store.put(oid, ("stored",))
+        from ray_tpu_torch._private import memplane
+
+        # provenance rides the registration message itself (memory plane)
+        self.scheduler.post(
+            ("put_done", oid, ("stored",), size, memplane.capture_put())
+        )
+        return oid
+
+    def object_ready(self, oid: ObjectID) -> bool:
+        return self.scheduler.memory_store.contains(oid) or self.store.contains(oid)
+
+    def _read_same_host_peer(self, oid: ObjectID):
+        """Zero-copy view from a colocated daemon node's store (plasma
+        model: one machine, one shared memory); None when no peer copy."""
+        if not self.config.same_host_shm_transfer:
+            return None
+        from ray_tpu_torch._private.object_transfer import read_peer_pinned
+
+        try:
+            dirs = self.rpc("same_host_dirs", oid)
+        except Exception:
+            return None
+        for d in dirs or ():
+            mv = read_peer_pinned(d, oid)
+            if mv is not None:
+                return mv
+        return None
+
+    def get_objects(self, oids: List[ObjectID], timeout: Optional[float] = None) -> List[Any]:
+        ms = self.scheduler.memory_store
+        deadline = None if timeout is None else time.monotonic() + timeout
+        missing = list(dict.fromkeys(o for o in oids if not ms.contains(o)))
+        if missing and self._direct is not None:
+            self._direct.flush()
+        if missing:
+            # hung-get watchdog: a get blocked past the threshold prints a
+            # forensic digest (pending task chain + cluster task states) and
+            # records a HUNG_GET event, then keeps waiting. At most two
+            # wait_for calls per get — no polling on the happy path.
+            warn_s = float(getattr(self.config, "hung_get_warn_s", 0.0) or 0.0)
+            split_wait = warn_s > 0 and (timeout is None or timeout > warn_s)
+            ready = ms.wait_for(missing, warn_s if split_wait else timeout)
+            pending = [o for o in missing if o not in ready]
+            if pending and split_wait:
+                self._warn_hung_get(pending, warn_s)
+                remaining = (
+                    None if deadline is None else deadline - time.monotonic()
+                )
+                if remaining is None or remaining > 0:
+                    ready = ready | ms.wait_for(pending, remaining)
+                pending = [o for o in missing if o not in ready]
+            if pending:
+                raise exc.GetTimeoutError(
+                    f"get() timed out waiting for {len(pending)} objects"
+                )
+        out = []
+        for oid in oids:
+            entry = ms.get_entry(oid)
+            while entry is None:
+                # committed earlier but evicted since (lineage reconstruction
+                # of a lost return): wait for the recomputation to recommit
+                remaining = None if deadline is None else deadline - time.monotonic()
+                if remaining is not None and remaining <= 0:
+                    raise exc.GetTimeoutError(
+                        f"get() timed out waiting for {oid.hex()} to be "
+                        "reconstructed"
+                    )
+                ms.wait_for([oid], min(remaining, 5.0) if remaining else 5.0)
+                entry = ms.get_entry(oid)
+            val, is_err = self._entry_value(oid, entry, timeout)
+            if is_err:
+                raise val
+            out.append(val)
+        return out
+
+    def _warn_hung_get(self, pending: List[ObjectID], warn_s: float) -> None:
+        """Print the scheduler's forensic digest for a get() that has been
+        blocked for ``warn_s`` seconds (parity role: the reference's
+        'waiting for ...' warning + ray stack guidance, here with the
+        actual pending task chain)."""
+        try:
+            digest = self.scheduler_rpc(
+                "hung_get_digest", ([o.hex() for o in pending],)
+            )
+        except Exception:
+            digest = f"get() blocked on {len(pending)} objects (digest unavailable)"
+        try:
+            import sys as _sys
+
+            _sys.stderr.write(
+                f"[ray_tpu_torch] get() has been blocked for {warn_s:.0f}s:\n"
+                f"{digest}\n"
+            )
+            _sys.stderr.flush()
+        except Exception:
+            pass
+
+    def _entry_value(self, oid: ObjectID, entry: Tuple, timeout=None) -> Tuple[Any, bool]:
+        """Returns (value, is_error). Error-ness comes from the entry kind so
+        exception *values* stored by users round-trip as plain objects."""
+        kind = entry[0]
+        if kind == "inline":
+            return self.serde.deserialize_from(memoryview(entry[1])), False
+        if kind == "stored":
+            # the copy may live on a remote node (or have been lost with it):
+            # poll while periodically asking the scheduler to transfer — or
+            # lineage-reconstruct — it into the head store. The wait honors
+            # the caller's get() timeout (capped at 60s).
+            from ray_tpu_torch._private import netplane
+
+            budget = 60.0 if timeout is None else min(float(timeout), 60.0)
+            deadline = time.monotonic() + budget
+            path = "shm"
+            peer_dir = ""
+            peer_dur = 0.0  # the peer READ alone, polls excluded
+            t_wall0, t_perf0 = time.time(), time.perf_counter()
+            mv = self.store.get(oid, timeout=0.05)
+            if mv is None and self._direct is not None:
+                # a direct actor-call return stored on the executing worker's
+                # node: the reply carried that node's shm dir — zero-copy it
+                d = self._direct.stored_dirs.get(oid)
+                if d:
+                    from ray_tpu_torch._private.object_transfer import read_peer_pinned
+
+                    t_peer = time.perf_counter()
+                    mv = read_peer_pinned(d, oid)
+                    if mv is not None:
+                        path, peer_dir = "shm_peer", d
+                        peer_dur = time.perf_counter() - t_peer
+            if mv is None:
+                t_peer = time.perf_counter()
+                mv = self._read_same_host_peer(oid)
+                if mv is not None:
+                    path = "shm_peer"
+                    peer_dur = time.perf_counter() - t_peer
+            xfer_ctx = None
+            while mv is None:
+                if time.monotonic() >= deadline:
+                    return exc.ObjectLostError(f"object {oid.hex()} lost from store"), True
+                try:
+                    if xfer_ctx is None and netplane.enabled():
+                        from ray_tpu_torch.util import tracing
+
+                        ctx = tracing.get_current_context()
+                        xfer_ctx = (
+                            (ctx.trace_id, ctx.span_id) if ctx else False
+                        )
+                    if xfer_ctx:
+                        # None dest = head (this driver's node); the ctx
+                        # lets the wire span join this request's trace
+                        self.rpc("ensure_local", oid, None, xfer_ctx)
+                    else:
+                        self.rpc("ensure_local", oid)
+                except Exception:
+                    pass
+                path = "transfer"
+                mv = self.store.get(oid, timeout=2.0)
+                if mv is None:
+                    t_peer = time.perf_counter()
+                    mv = self._read_same_host_peer(oid)
+                    if mv is not None:
+                        path = "shm_peer"
+                        peer_dur = time.perf_counter() - t_peer
+            netplane.finish_blocked_read(
+                path, mv.nbytes, t_wall0, t_perf0, peer_dur, peer_dir, oid
+            )
+            return self.serde.deserialize_from(mv), False
+        if kind == "error":
+            err = pickle.loads(entry[1])
+            if isinstance(err, exc.TaskError):
+                return err.as_instanceof_cause(), True
+            return err, True
+        return exc.RayTpuError(f"bad entry {kind}"), True
+
+    def wait(self, oids: List[ObjectID], num_returns: int, timeout: Optional[float]):
+        ms = self.scheduler.memory_store
+        if self._direct is not None:
+            self._direct.flush()
+        ready = ms.wait_num(oids, num_returns, timeout)
+        ready_set = set(ready[:num_returns])
+        return (
+            [o for o in oids if o in ready_set],
+            [o for o in oids if o not in ready_set],
+        )
+
+    # -- task plane --------------------------------------------------------
+
+    def submit(self, spec: TaskSpec) -> None:
+        # actor method calls ride the direct plane straight to the target
+        # worker when possible; everything else goes through the scheduler.
+        # For the legacy path, pin ref args for the duration of the task
+        # (submitted-task references, parity: reference_count.h). add_ref is
+        # posted to the same command queue *before* submit, so a subsequent
+        # ObjectRef.__del__ remove_ref can never drop the count to zero
+        # while the task is in flight.
+        if (
+            self._direct is not None
+            and spec.task_type == TaskType.ACTOR_TASK
+            and self._direct.submit(spec)
+        ):
+            return
+        self.legacy_submit(spec)
+
+    def kill_actor(self, actor_id: ActorID, no_restart: bool):
+        if self._direct is not None:
+            self._direct.flush()  # buffered calls precede the kill
+        self.scheduler.post(("kill_actor", actor_id, no_restart))
+        if no_restart and self._direct is not None:
+            self._direct.mark_killed(actor_id)
+
+    def actor_handle_count(self, actor_id: ActorID, delta: int):
+        if (
+            delta < 0
+            and self._direct is not None
+            and self._direct.handle_release(actor_id)
+        ):
+            return  # deferred until this process's in-flight calls drain
+        self.scheduler.post(("handle_count", actor_id, delta))
+
+    def rpc(self, op: str, *args):
+        """Control-plane queries (same-process fast path)."""
+        return self.scheduler_rpc(op, args)
+
+    # ops backed by internally-locked tables, safe to call from this thread
+    _DIRECT_RPC = {
+        "kv_put",
+        "kv_get",
+        "kv_del",
+        "kv_pop",
+        "kv_keys",
+        "claim_actor_name",
+        "get_actor_by_name",
+        "object_ready",
+    }
+
+    def scheduler_rpc(self, op: str, args):
+        if op in self._DIRECT_RPC:
+            return self.scheduler._serve_rpc(op, args)
+        # everything else reads loop-owned state: serialize through the loop
+        event = threading.Event()
+        box: dict = {}
+        self.scheduler.post(("local_rpc", op, args, event, box))
+        if not event.wait(timeout=30):
+            raise exc.RayTpuError(f"scheduler rpc {op} timed out")
+        result = box["result"]
+        if isinstance(result, Exception):
+            raise result
+        return result
+
+    def current_task_id(self) -> TaskID:
+        return self.task_id
+
+    def new_task_id(self) -> TaskID:
+        return TaskID.for_task(self.task_id.actor_id())
+
+    def job_scope(
+        self,
+        *,
+        name: str = "",
+        priority: int = 0,
+        weight: float = 1.0,
+        quota: Optional[Dict[str, float]] = None,
+        meta: Optional[dict] = None,
+    ):
+        """Submit work as a distinct tenant: registers a job with the
+        scheduler's arbitration plane (admission control applies) and,
+        within the ``with`` block, binds every task / actor / put this
+        driver creates to that job — its DWRR weight, quota, and priority
+        govern dispatch. Raises ``JobAdmissionError`` when the submission
+        is rejected outright; a QUEUED job's work parks in its sub-queues
+        until admission."""
+        import contextlib
+
+        info = self.scheduler_rpc(
+            "submit_job",
+            (name, int(priority), float(weight), quota, meta),
+        )
+        if info["admission"] == "REJECTED":
+            raise exc.JobAdmissionError(
+                f"job {name or info['job']} rejected by admission control"
+            )
+        job = JobID.from_hex(info["job"])
+
+        @contextlib.contextmanager
+        def _scope():
+            prev_job, prev_task = self.job_id, self.task_id
+            self.job_id = job
+            self.task_id = TaskID.for_driver(job)
+            try:
+                yield info
+            finally:
+                self.job_id, self.task_id = prev_job, prev_task
+
+        return _scope()
+
+    def shutdown(self):
+        self.closed = True
+        if self._direct is not None:
+            self._direct.shutdown()
+        from ray_tpu_torch._private import usage
+
+        if usage.usage_stats_enabled():
+            usage.write_usage_report(self.node.session_dir)
+        self.node.shutdown()
+
+
+# --------------------------------------------------------------------------
+# arg packing shared by remote_function / actor
+# --------------------------------------------------------------------------
+
+
+def pack_args(rt, args, kwargs) -> Tuple[List[Arg], Dict[str, Arg]]:
+    serde = serialization.get_context()
+    inline_limit = rt.config.max_direct_call_object_size
+
+    def pack(v) -> Arg:
+        if isinstance(v, ObjectRef):
+            return Arg(object_id=v.id(), is_ref=True)
+        blob = serde.serialize_to_bytes(v)
+        if len(blob) <= inline_limit:
+            return Arg(value=b"\x01" + blob)
+        oid = rt.put(v)
+        return Arg(object_id=oid, is_ref=True)
+
+    return [pack(a) for a in args], {k: pack(v) for k, v in (kwargs or {}).items()}
+
+
+# --------------------------------------------------------------------------
+# init / shutdown
+# --------------------------------------------------------------------------
+
+
+def init(
+    address: Optional[str] = None,
+    num_cpus: Optional[int] = None,
+    num_gpus: Optional[int] = None,
+    resources: Optional[Dict[str, float]] = None,
+    object_store_memory: Optional[int] = None,
+    labels: Optional[Dict[str, str]] = None,
+    ignore_reinit_error: bool = False,
+    log_to_driver: bool = True,
+    namespace: Optional[str] = None,
+    _system_config: Optional[dict] = None,
+):
+    global _driver
+    if address:
+        raise NotImplementedError(
+            "ray_tpu_torch.init(address=...): attaching to a cluster (head "
+            "server, raylet, client) is a later slice of the port; "
+            "init() starts a local node"
+        )
+    with _global_lock:
+        if _driver is not None:
+            if ignore_reinit_error:
+                return _driver
+            raise RuntimeError("ray_tpu_torch.init() called twice (pass ignore_reinit_error=True)")
+        cfg = Config.from_env(
+            object_store_memory=object_store_memory,
+            log_to_driver=log_to_driver,
+            **(_system_config or {}),
+        )
+        node = Node(cfg, num_cpus=num_cpus, num_gpus=num_gpus, resources=resources, labels=labels)
+        _driver = DriverRuntime(node)
+        return _driver
+
+
+def shutdown() -> None:
+    global _driver
+    with _global_lock:
+        if _driver is not None:
+            _driver.shutdown()
+            _driver = None
+
+
+def get_driver() -> Optional[DriverRuntime]:
+    return _driver

@@ -1,0 +1,1511 @@
+"""Worker process main loop.
+
+Design parity: the reference worker = CoreWorker task execution path
+(``CoreWorker::ExecuteTask`` ``core_worker.cc:2906`` → Cython
+``task_execution_handler`` ``python/ray/_raylet.pyx:2218``): receive task,
+resolve args (inline / shm / pull from owner), execute user code, write returns
+(small inline in the reply, large to the shm store), loop.
+
+Concurrency model: a dedicated reader thread demultiplexes the pipe (replies
+routed by request id, tasks onto an execution queue). Serial actors and normal
+tasks execute in submission order on the main thread (parity:
+``ActorSchedulingQueue``); actors created with ``max_concurrency > 1`` execute
+on a thread pool (parity: threaded actors /
+``out_of_order_actor_scheduling_queue.h`` + ``concurrency_group_manager.h``).
+"""
+
+from __future__ import annotations
+
+import os
+import pickle
+import queue
+import sys
+import threading
+import time
+import traceback
+from concurrent.futures import ThreadPoolExecutor
+from typing import Any, Dict, List, Optional, Tuple
+
+import cloudpickle
+
+from ray_tpu_torch import exceptions as exc
+from ray_tpu_torch._private import memplane, serialization
+from ray_tpu_torch._private.ids import ObjectID, TaskID, WorkerID, _Counter
+from ray_tpu_torch._private.object_store import StoreFullError
+from ray_tpu_torch._private.task_spec import Arg, TaskSpec, TaskType
+
+
+
+def _cuda_initialized() -> bool:
+    """Whether a task initialised CUDA in this process. CUDA reads
+    ``CUDA_VISIBLE_DEVICES`` once, when it initialises, so such a worker
+    cannot take another task's device assignment: the scheduler retires it."""
+    torch = sys.modules.get("torch")
+    return torch is not None and torch.cuda.is_initialized()
+
+class _ReplyBuf:
+    """Per-connection result buffer: consecutive serial-actor results for
+    one caller flush as a single batched message (mirrors the caller's
+    submit batching — one pickle+syscall per batch)."""
+
+    __slots__ = ("conn", "send_lock", "items")
+
+    def __init__(self, conn, send_lock):
+        self.conn = conn
+        self.send_lock = send_lock
+        self.items: list = []
+
+    def flush(self):
+        if not self.items:
+            return
+        batch, self.items = self.items, []
+        try:
+            with self.send_lock:
+                self.conn.send(("results", batch))
+        except (OSError, EOFError, BrokenPipeError):
+            pass
+
+
+class _DirectCall:
+    """An actor call that arrived on the worker's direct listener; the result
+    returns on the same connection instead of the head pipe."""
+
+    __slots__ = ("spec", "conn", "send_lock", "buf")
+
+    def __init__(self, spec, conn, send_lock, buf):
+        self.spec = spec
+        self.conn = conn
+        self.send_lock = send_lock
+        self.buf = buf
+
+
+class DirectServer:
+    """Per-worker listener for direct actor calls (parity: the worker's gRPC
+    server receiving PushTask from peer CoreWorkers, ``task_receiver.h:51``).
+    One reader thread per caller connection preserves per-caller FIFO; the
+    exec queue (serial actors) or thread pool (max_concurrency>1) provides
+    the same ordering domains as head-relayed execution."""
+
+    def __init__(self, rt, host: str):
+        from multiprocessing.connection import Listener
+
+        self._rt = rt
+        self._closed = False
+        key = (rt.config.auth_key or "").encode()
+        self._listener = Listener((host, 0), authkey=key, backlog=64)
+        self.address = self._listener.address
+        threading.Thread(
+            target=self._accept_loop, name="direct-accept", daemon=True
+        ).start()
+
+    def close(self):
+        self._closed = True
+        try:
+            self._listener.close()
+        except OSError:
+            pass
+
+    def _accept_loop(self):
+        import multiprocessing as mp
+
+        while not self._closed:
+            try:
+                conn = self._listener.accept()
+            except (OSError, EOFError, mp.AuthenticationError):
+                if self._closed:
+                    return
+                continue
+            try:
+                from ray_tpu_torch._private.object_transfer import set_nodelay
+
+                set_nodelay(conn)
+            except Exception:
+                pass
+            threading.Thread(
+                target=self._reader, args=(conn,), name="direct-conn", daemon=True
+            ).start()
+
+    def _reader(self, conn):
+        send_lock = threading.Lock()
+        buf = _ReplyBuf(conn, send_lock)
+        try:
+            while True:
+                msg = conn.recv()
+                if msg[0] == "calls":
+                    for spec in msg[1]:
+                        self._rt.exec_queue.put(_DirectCall(spec, conn, send_lock, buf))
+                elif msg[0] == "call":
+                    self._rt.exec_queue.put(_DirectCall(msg[1], conn, send_lock, buf))
+        except (EOFError, OSError):
+            pass
+        finally:
+            try:
+                conn.close()
+            except OSError:
+                pass
+
+
+class WorkerRuntime:
+    """Per-worker runtime; installed as the global runtime inside workers so
+    ``ray_tpu_torch.get/put/remote`` work from task code (nested tasks)."""
+
+    def __init__(self, conn, worker_id: WorkerID, store, config):
+        self.conn = conn
+        self.worker_id = worker_id
+        self.store = store
+        self.config = config
+        self.serde = serialization.get_context()
+        self._req_counter = _Counter()
+        self._actor_instance: Any = None
+        self._actor_id = None
+        self._tls = threading.local()
+        self._put_counter = _Counter()
+        self._send_lock = threading.Lock()
+        # reader-thread demux state
+        self._responses: Dict[int, "queue.SimpleQueue"] = {}
+        self._responses_lock = threading.Lock()
+        self.exec_queue: "queue.SimpleQueue" = queue.SimpleQueue()
+        self._stopped = threading.Event()
+        # pubsub: channel -> local subscriber queues fed by pushed msgs
+        self._pubsub_local: Dict[str, List] = {}
+        self._pubsub_lock = threading.Lock()
+        # pickled-function blob -> deserialized callable/method-name (parity:
+        # the reference's per-worker function table; same blob = same object)
+        self._fn_cache: Dict[bytes, Any] = {}
+        # direct actor-call plane (this worker as CALLER); results it owns
+        # live in a process-local store, not at the head
+        self._direct = None
+        if getattr(config, "direct_actor_calls", True):
+            from ray_tpu_torch._private.direct_actor import DirectActorClient
+            from ray_tpu_torch._private.scheduler import MemoryStore
+
+            # MemoryStore (the head's in-process result store) doubles as
+            # the caller-local plane — same waiter-indexed wait path; the
+            # scheduler module is already in the forkserver preload
+            self._direct = DirectActorClient(self, MemoryStore())
+
+    # -- direct-plane runtime hooks (see DirectActorClient docstring) ------
+
+    def pin_external(self, oids):
+        self._send(("cmd", ("pin_args", list(oids))))
+
+    def unpin_external(self, oids):
+        self._send(("cmd", ("unpin_args", list(oids))))
+
+    def publish_external(self, items):
+        self._send(("cmd", ("direct_publish", list(items))))
+
+    def handle_count_external(self, actor_id, delta: int):
+        self._send(("cmd", ("handle_count", actor_id, delta)))
+
+    def protect_from_preemption(self, delta: int) -> None:
+        """Shield this worker from preemption/OOM victim selection while
+        the count is positive (mid-commit checkpoint saves). Fire-and-
+        forget: the window is advisory — a lost message degrades to the
+        pre-shield behavior, never to a hang."""
+        try:
+            self._send(("cmd", ("protect", int(delta))))
+        except (OSError, EOFError):
+            pass
+
+    def legacy_submit(self, spec: TaskSpec):
+        arg_refs = spec.arg_ref_ids()
+        if arg_refs:
+            self.ensure_published(arg_refs)
+            self._send(("cmd", ("pin_args", arg_refs)))
+        self._send(("submit", spec))
+
+    def ensure_published(self, oids):
+        if self._direct is not None and oids:
+            self._direct.ensure_published(oids)
+
+    def _direct_entry(self, oid):
+        if self._direct is None:
+            return None
+        entry = self._direct.store.get_entry(oid)
+        if entry is not None and entry[0] == "stored":
+            d = self._direct.stored_dirs.get(oid)
+            if d:
+                return ("stored", [d])
+        return entry
+
+    # -- task context (per executing thread) ------------------------------
+
+    @property
+    def current_task_id(self) -> Optional[TaskID]:
+        return getattr(self._tls, "task_id", None)
+
+    @current_task_id.setter
+    def current_task_id(self, value):
+        self._tls.task_id = value
+
+    # -- transport ---------------------------------------------------------
+
+    def _send(self, msg):
+        with self._send_lock:
+            self.conn.send(msg)
+
+    def reader_loop(self):
+        """Runs on a dedicated thread: demultiplexes the pipe."""
+        try:
+            while True:
+                msg = self.conn.recv()
+                kind = msg[0]
+                if kind in ("pull_reply", "rpc_reply"):
+                    with self._responses_lock:
+                        q = self._responses.get(msg[1])
+                    if q is not None:
+                        q.put(msg)
+                elif kind == "exec":
+                    accel = msg[2] if len(msg) > 2 else None
+                    prev = getattr(self, "_accel_alloc", None)
+                    if accel is None and msg[1].task_type == TaskType.ACTOR_TASK:
+                        # method calls carry no assignment of their own —
+                        # the actor keeps its creation-time devices; do
+                        # NOT wipe them (head-relayed calls arrive as
+                        # 2-tuples on every transport)
+                        pass
+                    elif accel or prev:
+                        # scope the process's accelerator visibility to the
+                        # task (env applies before the exec dequeues — pipe
+                        # order guarantees it precedes the task thread's
+                        # first device use). ALWAYS drop the previous
+                        # task's keys first: a TPU task followed by a
+                        # GPU-only task must not keep TPU_VISIBLE_CHIPS
+                        from ray_tpu_torch._private.resources import visible_env_for
+
+                        if prev:
+                            for k in visible_env_for(prev):
+                                os.environ.pop(k, None)
+                        if accel:
+                            os.environ.update(visible_env_for(accel))
+                        self._accel_alloc = accel
+                    self.exec_queue.put(msg[1])
+                elif kind == "pubsub_msg":
+                    with self._pubsub_lock:
+                        queues = list(self._pubsub_local.get(msg[1], ()))
+                    for q in queues:
+                        q.put(msg[2])
+                elif kind == "dump_stacks":
+                    # reporter-agent stack dump (runs here on the reader
+                    # thread so a busy/blocked task thread still reports)
+                    from ray_tpu_torch._private.profiling import format_thread_stacks
+
+                    try:
+                        self._send(("stacks_reply", msg[1], format_thread_stacks()))
+                    except (OSError, EOFError):
+                        pass
+                elif kind == "profile":
+                    # on-demand continuous-profiler boost (request_profile):
+                    # (hz, duration_s) — applies on top of profiler_hz
+                    from ray_tpu_torch._private import sampler as _sampler
+
+                    try:
+                        _sampler.boost(float(msg[1]), float(msg[2]))
+                    except Exception:
+                        pass
+                elif kind == "flush_telemetry":
+                    # cluster-wide read-your-writes flush (timeline /
+                    # prometheus / profile_dump reads): drain the buffer NOW
+                    # from this reader thread — a busy task thread doesn't
+                    # delay it. The batch rides this same pipe before the
+                    # ack (FIFO), so the scheduler has merged it when the
+                    # ack lands. Pending profiler aggregates go first so
+                    # flame-graph reads see samples newer than the
+                    # sampler's ~1s sweep cadence.
+                    from ray_tpu_torch._private import sampler as _sampler
+                    from ray_tpu_torch._private import telemetry
+
+                    try:
+                        _sampler.get_sampler().drain()
+                        telemetry.flush()
+                        self._send(("telemetry_ack", msg[1]))
+                    except (OSError, EOFError):
+                        pass
+                elif kind == "exit":
+                    break
+                # unknown messages dropped
+        except (EOFError, OSError):
+            pass
+        finally:
+            self._stopped.set()
+            self.exec_queue.put(None)
+
+    def _register_req(self) -> Tuple[int, "queue.SimpleQueue"]:
+        req_id = self._req_counter.next()
+        q: "queue.SimpleQueue" = queue.SimpleQueue()
+        with self._responses_lock:
+            self._responses[req_id] = q
+        return req_id, q
+
+    def _unregister_req(self, req_id: int):
+        with self._responses_lock:
+            self._responses.pop(req_id, None)
+
+    # -- object plane ------------------------------------------------------
+
+    def put(self, value) -> ObjectID:
+        tid = self.current_task_id or TaskID.nil()
+        oid = ObjectID.for_put(tid, self._put_counter.next())
+        size = self.store.put_serialized(oid, self.serde, value)
+        # provenance rides the registration message itself (memory plane)
+        self._send(("submit_put", oid, size, memplane.capture_put()))
+        return oid
+
+    def get_objects(self, oids: List[ObjectID], timeout: Optional[float] = None) -> List[Any]:
+        out: Dict[ObjectID, Any] = {}
+        errs: Dict[ObjectID, bool] = {}
+        missing = []
+        for oid in oids:
+            if oid in out:
+                continue
+            mv = self.store.get(oid, timeout=0)
+            if mv is not None:
+                self._acct_fetch("shm", mv.nbytes)
+                out[oid] = self.serde.deserialize_from(mv)
+                errs[oid] = False
+                continue
+            entry = self._direct_entry(oid)
+            if entry is not None:
+                out[oid], errs[oid] = self._entry_value(oid, entry, timeout)
+            else:
+                missing.append(oid)
+        missing = list(dict.fromkeys(missing))
+        if missing and self._direct is not None:
+            self._direct.flush()
+        if missing and self._direct is not None and all(
+            self._direct.routes_local(o) for o in missing
+        ):
+            # pure direct-plane get (the actor-call hot path): block on the
+            # local result store with no head traffic at all. Non-actor
+            # workers still report blocking so their held resources free
+            # (actor workers hold dedicated lifetime resources — no-op).
+            announce_block = self._actor_id is None
+            if announce_block:
+                self._send(("block_begin",))
+            try:
+                deadline = None if timeout is None else time.monotonic() + timeout
+                pending = list(missing)
+                while pending:
+                    remaining = 0.5 if deadline is None else min(
+                        0.5, deadline - time.monotonic()
+                    )
+                    if remaining <= 0:
+                        raise exc.GetTimeoutError(
+                            f"get timed out on {len(pending)} objects"
+                        )
+                    self._direct.store.wait_for(pending, remaining)
+                    nxt = []
+                    for oid in pending:
+                        entry = self._direct_entry(oid)
+                        if entry is None:
+                            nxt.append(oid)
+                        else:
+                            out[oid], errs[oid] = self._entry_value(oid, entry, timeout)
+                    pending = nxt
+                    if pending and not all(
+                        self._direct.routes_local(o) for o in pending
+                    ):
+                        # a channel fell back to the head relay mid-wait:
+                        # finish on the general (pull) path below
+                        break
+            finally:
+                if announce_block:
+                    self._send(("block_end",))
+            missing = pending
+        if missing:
+            self._send(("block_begin",))
+            req_id, q = self._register_req()
+            try:
+                deadline = None if timeout is None else time.monotonic() + timeout
+                pending = set(missing)
+                # direct-plane oids commit locally; registering head pulls for
+                # them would park waiters at the head forever
+                pulled = {
+                    o
+                    for o in missing
+                    if self._direct is None or not self._direct.routes_local(o)
+                }
+                if pulled:
+                    self._send(("pull", req_id, list(pulled)))
+                # the scheduler always replies once immediately (inline values
+                # arrive only through that reply) — a user timeout shorter
+                # than the round-trip must not fail already-complete gets, so
+                # the deadline only applies after the initial reply
+                got_initial = not pulled
+                initial_deadline = time.monotonic() + 30.0
+                while pending:
+                    try:
+                        remaining = 0.2 if deadline is None else min(
+                            0.2, max(0.01, deadline - time.monotonic())
+                        )
+                        msg = q.get(timeout=remaining)
+                    except queue.Empty:
+                        msg = None
+                    if msg is not None:
+                        got_initial = True
+                        for oid, entry in msg[2].items():
+                            if oid in pending and entry[0] != "pending":
+                                out[oid], errs[oid] = self._entry_value(oid, entry, timeout)
+                                pending.discard(oid)
+                    # objects can also appear directly in the store
+                    for oid in list(pending):
+                        mv = self.store.get(oid, timeout=0)
+                        if mv is not None:
+                            self._acct_fetch("shm", mv.nbytes)
+                            out[oid] = self.serde.deserialize_from(mv)
+                            errs[oid] = False
+                            pending.discard(oid)
+                            continue
+                        entry = self._direct_entry(oid)
+                        if entry is not None:
+                            out[oid], errs[oid] = self._entry_value(oid, entry, timeout)
+                            pending.discard(oid)
+                    # a channel that fell back to the head relay moves its
+                    # oids onto the head plane: pull the ones we skipped
+                    if self._direct is not None:
+                        newly = [
+                            o
+                            for o in pending
+                            if o not in pulled and not self._direct.routes_local(o)
+                        ]
+                        if newly:
+                            pulled.update(newly)
+                            self._send(("pull", req_id, newly))
+                    now = time.monotonic()
+                    if pending and deadline is not None and now >= deadline:
+                        if got_initial:
+                            raise exc.GetTimeoutError(
+                                f"get timed out on {len(pending)} objects"
+                            )
+                        if now >= initial_deadline:
+                            raise exc.GetTimeoutError("no reply from scheduler")
+                    if self._stopped.is_set():
+                        raise exc.RayTpuError("worker shutting down during get")
+            finally:
+                self._unregister_req(req_id)
+                self._send(("block_end",))
+        results = []
+        for oid in oids:
+            if errs.get(oid):
+                raise out[oid]
+            results.append(out[oid])
+        return results
+
+    def _entry_value(self, oid: ObjectID, entry: Tuple, timeout) -> Tuple[Any, bool]:
+        """Returns (value, is_error); error-ness from the entry kind only."""
+        kind = entry[0]
+        if kind == "inline":
+            self._acct_fetch("inline", len(entry[1]))
+            return self.serde.deserialize_from(memoryview(entry[1])), False
+        if kind == "error":
+            err = pickle.loads(entry[1])
+            if isinstance(err, exc.TaskError):
+                return err.as_instanceof_cause(), True
+            return err, True
+        if kind == "stored":
+            # the copy may live on another node (or have been lost with it):
+            # try a zero-copy read out of a colocated peer node's store
+            # first, then poll the local store while periodically asking the
+            # scheduler to transfer — or lineage-reconstruct — it
+            from ray_tpu_torch._private import netplane
+
+            deadline = time.monotonic() + (timeout if timeout is not None else 60.0)
+            path = "shm"
+            peer_dir = ""
+            peer_dur = 0.0  # the peer READ alone, polls excluded
+            t_wall0, t_perf0 = time.time(), time.perf_counter()
+            mv = self.store.get(oid, timeout=0.05)
+            if mv is None and len(entry) > 1:
+                # zero-copy dirs rode the pull reply: map the peer store now
+                from ray_tpu_torch._private.object_transfer import read_peer_pinned
+
+                t_peer = time.perf_counter()
+                for d in entry[1]:
+                    mv = read_peer_pinned(d, oid)
+                    if mv is not None:
+                        path, peer_dir = "shm_peer", d
+                        break
+                peer_dur = time.perf_counter() - t_peer
+            if mv is None:
+                t_peer = time.perf_counter()
+                mv = self._read_same_host_peer(oid)
+                if mv is not None:
+                    path = "shm_peer"
+                    peer_dur = time.perf_counter() - t_peer
+            # trace context travels with the transfer request so the
+            # scheduler can hang the wire span under this task's arg_fetch
+            xfer_ctx = None
+            while mv is None:
+                if time.monotonic() >= deadline or self._stopped.is_set():
+                    return exc.ObjectLostError(f"object {oid.hex()} not in store"), True
+                try:
+                    if xfer_ctx is None and netplane.enabled():
+                        from ray_tpu_torch.util import tracing
+
+                        ctx = tracing.get_current_context()
+                        xfer_ctx = (
+                            (ctx.trace_id, ctx.span_id) if ctx else False
+                        )
+                    if xfer_ctx:
+                        self.rpc("ensure_local_traced", oid, xfer_ctx)
+                    else:
+                        self.rpc("ensure_local", oid)
+                except Exception:
+                    pass
+                # landed via the scheduler's transfer plane: a socket copy
+                # or a spill restore, not a pre-resident shm hit
+                path = "transfer"
+                mv = self.store.get(oid, timeout=2.0)
+                if mv is None:
+                    t_peer = time.perf_counter()
+                    mv = self._read_same_host_peer(oid)
+                    if mv is not None:
+                        path = "shm_peer"
+                        peer_dur = time.perf_counter() - t_peer
+            self._acct_fetch(path, mv.nbytes)
+            netplane.finish_blocked_read(
+                path, mv.nbytes, t_wall0, t_perf0, peer_dur, peer_dir, oid
+            )
+            return self.serde.deserialize_from(mv), False
+        return exc.RayTpuError(f"bad entry {kind}"), True
+
+    def _read_same_host_peer(self, oid: ObjectID) -> Optional[memoryview]:
+        """Zero-copy view from a colocated peer node's store (plasma model:
+        one machine, one shared memory); None when no peer copy exists."""
+        if not getattr(self.config, "same_host_shm_transfer", True):
+            return None
+        from ray_tpu_torch._private.object_transfer import read_peer_pinned
+
+        try:
+            dirs = self.rpc("same_host_dirs", oid)
+        except Exception:
+            return None
+        for d in dirs or ():
+            mv = read_peer_pinned(d, oid)
+            if mv is not None:
+                return mv
+        return None
+
+    def object_ready_local(self, oid: ObjectID) -> bool:
+        return self.store.contains(oid)
+
+    def wait(self, oids, num_returns, timeout):
+        """One pull registration for the whole wait; readiness arrives via the
+        initial reply plus per-object follow-ups (no per-poll churn)."""
+        ready: List[ObjectID] = []
+        pending = list(dict.fromkeys(oids))
+        if self._direct is not None:
+            self._direct.flush()
+        deadline = None if timeout is None else time.monotonic() + timeout
+        req_id, q = self._register_req()
+        try:
+            pulled = {
+                o
+                for o in pending
+                if self._direct is None or not self._direct.routes_local(o)
+            }
+            if pulled:
+                self._send(("pull", req_id, list(pulled)))
+            pending = set(pending)
+            while True:
+                for oid in list(pending):
+                    if self.store.contains(oid) or (
+                        self._direct is not None
+                        and self._direct.store.contains(oid)
+                    ):
+                        ready.append(oid)
+                        pending.discard(oid)
+                try:
+                    msg = q.get(timeout=0.05)
+                except queue.Empty:
+                    msg = None
+                if msg is not None:
+                    for oid, entry in msg[2].items():
+                        if oid in pending and entry[0] != "pending":
+                            ready.append(oid)
+                            pending.discard(oid)
+                if self._direct is not None:
+                    newly = [
+                        o
+                        for o in pending
+                        if o not in pulled and not self._direct.routes_local(o)
+                    ]
+                    if newly:
+                        pulled.update(newly)
+                        self._send(("pull", req_id, newly))
+                if len(ready) >= num_returns or not pending:
+                    break
+                if deadline is not None and time.monotonic() >= deadline:
+                    break
+        finally:
+            self._unregister_req(req_id)
+        sel = ready[:num_returns]
+        sel_set = set(sel)
+        return sel, [o for o in oids if o not in sel_set]
+
+    def submit(self, spec: TaskSpec):
+        if (
+            self._direct is not None
+            and spec.task_type == TaskType.ACTOR_TASK
+            and self._direct.submit(spec)
+        ):
+            return
+        arg_refs = spec.arg_ref_ids()
+        if arg_refs:
+            # direct-plane results escaping into a head-routed task must be
+            # head-visible (and head-owned) before the task resolves them
+            self.ensure_published(arg_refs)
+            # in-flight arg pins: released by the SCHEDULER at task
+            # completion, so they must stay unattributed — attributing them
+            # to this worker would make worker death release them a second
+            # time and free objects other holders still reference
+            self._send(("cmd", ("pin_args", arg_refs)))
+        self._send(("submit", spec))
+
+    def rpc(self, op: str, *args):
+        req_id, q = self._register_req()
+        try:
+            self._send(("rpc", req_id, op, args))
+            reply = q.get(timeout=30)
+        except queue.Empty:
+            raise exc.RayTpuError(f"rpc {op} timed out") from None
+        finally:
+            self._unregister_req(req_id)
+        result = reply[2]
+        if isinstance(result, Exception):
+            raise result
+        return result
+
+    def object_ready(self, oid: ObjectID) -> bool:
+        if self.store.contains(oid):
+            return True
+        if self._direct is not None and self._direct.store.contains(oid):
+            return True
+        return bool(self.rpc("object_ready", oid))
+
+    def kill_actor(self, actor_id, no_restart: bool):
+        if self._direct is not None:
+            self._direct.flush()  # buffered calls precede the kill
+        self._send(("cmd", ("kill_actor", actor_id, no_restart)))
+        if no_restart and self._direct is not None:
+            self._direct.mark_killed(actor_id)
+
+    def actor_handle_count(self, actor_id, delta: int):
+        if (
+            delta < 0
+            and self._direct is not None
+            and self._direct.handle_release(actor_id)
+        ):
+            return  # deferred until this process's in-flight calls drain
+        self._send(("cmd", ("handle_count", actor_id, delta)))
+
+    def new_task_id(self) -> TaskID:
+        base = self.current_task_id or TaskID.nil()
+        return TaskID.for_task(base.actor_id())
+
+    def add_refs(self, oids):
+        if self._direct is not None:
+            oids = self._direct.add_refs(oids)
+            if not oids:
+                return
+        self._send(("cmd", ("add_ref", list(oids))))
+
+    def release_stream(self, task_id):
+        if self._direct is not None:
+            self._direct.release_stream(task_id)
+
+    # -- pubsub (parity: GCS pubsub subscriber surface) --------------------
+
+    def pubsub_publish(self, channel: str, blob: bytes) -> None:
+        self._send(("cmd", ("pubsub_publish", channel, blob)))
+
+    def pubsub_subscribe(self, channel: str):
+        import queue as _queue
+
+        q: "_queue.SimpleQueue" = _queue.SimpleQueue()
+        with self._pubsub_lock:
+            lst = self._pubsub_local.setdefault(channel, [])
+            first = not lst
+            lst.append(q)
+        if first:
+            self._send(("cmd", ("pubsub_sub", channel)))
+            # barrier: cmd and rpc share this conn and the head handles them
+            # in receipt order — the roundtrip guarantees the subscription
+            # is registered before subscribe() returns, so a publish issued
+            # next (from any process) cannot outrun it
+            try:
+                self.rpc("pubsub_sync")
+            except Exception:
+                pass
+        return q
+
+    def pubsub_unsubscribe(self, channel: str, q) -> None:
+        with self._pubsub_lock:
+            lst = self._pubsub_local.get(channel)
+            if lst is None:
+                return
+            try:
+                lst.remove(q)
+            except ValueError:
+                return
+            last = not lst
+            if last:
+                del self._pubsub_local[channel]
+        if last:
+            self._send(("cmd", ("pubsub_unsub", channel)))
+
+    def transit_pin(self, pairs):
+        # serializing a locally-owned ref hands it to another process:
+        # escalate ownership to the head first so the borrower protocol
+        # (token pin below + the consumer's add/release) has a home there
+        if self._direct is not None:
+            self.ensure_published([oid for oid, _ in pairs])
+        self._send(
+            ("cmd", ("ref_batch", [(2, oid, tok) for oid, tok in pairs]))
+        )
+
+    def transit_release(self, pairs):
+        self._send(
+            ("cmd", ("ref_batch", [(3, oid, tok) for oid, tok in pairs]))
+        )
+
+    def remove_refs(self, oids):
+        if self._direct is not None:
+            oids = self._direct.remove_refs(oids)
+            if not oids:
+                return
+        self._send(("cmd", ("remove_ref", list(oids))))
+
+    # -- execution ---------------------------------------------------------
+
+    def _acct_fetch(self, path: str, nbytes: int) -> None:
+        """Attribute fetched argument bytes to a transfer path (shm / peer
+        shm / inline / socket-or-spill transfer) for the tracing plane's
+        arg_fetch stage. No-op outside a _resolve_args window."""
+        st = getattr(self._tls, "fetch_acct", None)
+        if st is not None:
+            st["bytes"] += nbytes
+            st["paths"][path] = st["paths"].get(path, 0) + nbytes
+
+    def _resolve_args(self, spec: TaskSpec):
+        ref_ids = [
+            a.object_id
+            for a in list(spec.args) + list(spec.kwargs.values())
+            if a.is_ref and a.object_id is not None
+        ]
+        values: Dict[ObjectID, Any] = {}
+        if ref_ids:
+            stages = getattr(self._tls, "stages", None)
+            acct = {"bytes": 0, "paths": {}}
+            self._tls.fetch_acct = acct if stages is not None else None
+            t0 = time.perf_counter()
+            try:
+                resolved = self.get_objects(ref_ids)
+            finally:
+                if stages is not None:
+                    stages["arg_fetch_ms"] = (time.perf_counter() - t0) * 1e3
+                    stages["arg_bytes"] = acct["bytes"]
+                    stages["arg_paths"] = acct["paths"]
+                self._tls.fetch_acct = None
+            values = dict(zip(ref_ids, resolved))
+
+        def mat(a: Arg):
+            if a.is_ref:
+                return values[a.object_id]
+            if isinstance(a.value, bytes) and a.value[:1] == b"\x01":
+                return self.serde.deserialize_from(memoryview(a.value)[1:])
+            return a.value
+
+        args = [mat(a) for a in spec.args]
+        kwargs = {k: mat(a) for k, a in spec.kwargs.items()}
+        stages = getattr(self._tls, "stages", None)
+        if stages is not None:
+            # user-code execution is measured from here (args materialized)
+            stages["_args_done"] = time.perf_counter()
+        return args, kwargs
+
+    def _store_results(self, spec: TaskSpec, value: Any) -> List[Tuple]:
+        stages = getattr(self._tls, "stages", None)
+        t_put0 = time.perf_counter()
+        if spec.num_returns == 1:
+            values = [value]
+        elif spec.num_returns == 0:
+            values = []
+        else:
+            values = list(value)
+            if len(values) != spec.num_returns:
+                raise ValueError(
+                    f"task {spec.name} declared num_returns={spec.num_returns} "
+                    f"but returned {len(values)} values"
+                )
+        out = []
+        total_size = 0
+        for i, v in enumerate(values):
+            # serialize once; large values are written straight into the
+            # store buffer (single copy)
+            pickled, buffers = self.serde.serialize(v)
+            size = self.serde.serialized_size(pickled, buffers)
+            total_size += size
+            if size <= self.config.max_direct_call_object_size:
+                buf = bytearray(size)
+                self.serde.write_to(pickled, buffers, memoryview(buf))
+                out.append(("inline", bytes(buf)))
+            else:
+                oid = ObjectID.for_return(spec.task_id, i)
+                try:
+                    if not self.store.contains(oid):
+                        try:
+                            dest = self.store.create(oid, size)
+                            self.serde.write_to(pickled, buffers, dest)
+                            self.store.seal(oid)
+                        except ValueError:
+                            if not self.store.contains(oid):
+                                raise
+                    # provenance: a return's creation site IS the task —
+                    # group leaked returns under the function that made them
+                    memplane.record_object(
+                        oid, size, "return", callsite=f"task:{spec.name}"
+                    )
+                    out.append(("stored",))
+                except StoreFullError:
+                    out.append(
+                        ("error", pickle.dumps(exc.ObjectStoreFullError(f"{size} bytes")))
+                    )
+        if stages is not None:
+            stages["result_put_ms"] = (time.perf_counter() - t_put0) * 1e3
+            stages["result_bytes"] = total_size
+        return out
+
+    def _apply_runtime_env(self, spec: TaskSpec):
+        """Apply env_vars + working_dir + py_modules around execution
+        (parity: python/ray/_private/runtime_env; packages are
+        content-addressed zips in the cluster KV, working_dir.py:1)."""
+        from ray_tpu_torch._private import runtime_env as renv
+
+        return renv.apply(self, spec.runtime_env or {})
+
+    def _restore_env(self, saved):
+        from ray_tpu_torch._private import runtime_env as renv
+
+        renv.restore(saved)
+
+    def execute(self, spec: TaskSpec) -> List[Tuple]:
+        self.current_task_id = spec.task_id
+        saved_env = {}
+        trace_ctx = None
+        span_cm = None
+        from ray_tpu_torch.util import tracing as _tracing
+
+        # per-task stage attribution (tracing plane): _resolve_args /
+        # _store_results / the streaming loop fill this in; run_one ships it
+        # on the FINISHED event so ray_tpu_torch.trace() can decompose the span
+        self._tls.stages = {}
+        try:
+            # adopt the task's submission-minted span as this thread's
+            # context (span tree across processes; parity: tracing_helper
+            # extract on the execution side). Inside the try: a malformed
+            # user-supplied _trace_ctx must surface as a TaskError, like any
+            # other runtime_env failure.
+            trace_ctx = _tracing.activate_from_spec(spec)
+            # profiler attribution: samples taken on this thread while the
+            # task runs land on (task_id, trace_id)
+            from ray_tpu_torch._private import sampler as _sampler
+
+            _sampler.note_thread_task(
+                spec.task_id.hex(),
+                trace_ctx.trace_id if trace_ctx is not None else None,
+            )
+            if trace_ctx is not None and trace_ctx.verbose:
+                # legacy explicit-tracing mode (enable_tracing()): keep the
+                # per-task PROFILE wrapper span the chrome timeline's flow
+                # links anchor on. Default-on tracing skips it — lifecycle
+                # events carry the span ids, and ray_tpu_torch.trace() is the
+                # span-tree view — saving one telemetry span per task on
+                # the small-task hot path (overhead-ratio budget 1.05).
+                from ray_tpu_torch._private import profiling as _prof
+
+                span_cm = _prof.profile(
+                    f"task:{spec.name}", extra_data=trace_ctx.to_dict()
+                )
+                span_cm.__enter__()
+            # inside the try: a runtime_env setup failure (missing package,
+            # bad zip, rpc timeout) must surface as a TaskError, not kill the
+            # worker loop (parity: RuntimeEnvSetupError)
+            if spec.runtime_env:
+                t_env = time.perf_counter()
+                saved_env = self._apply_runtime_env(spec)
+                # launch lifecycle: runtime_env apply cost rides the
+                # FINISHED event's stage dict (decomposes execute_ms)
+                self._tls.stages["runtime_env_ms"] = (
+                    time.perf_counter() - t_env
+                ) * 1e3
+                if spec.task_type == TaskType.ACTOR_CREATION:
+                    # a dedicated actor worker keeps its runtime env for the
+                    # actor's whole lifetime (parity: runtime envs are
+                    # per-process, python/ray/_private/runtime_env/plugin.py);
+                    # restoring after __init__ would strip env_vars from
+                    # every subsequent method call
+                    saved_env = {}
+            if spec.task_type == TaskType.ACTOR_CREATION:
+                t_load = time.perf_counter()
+                cls = cloudpickle.loads(spec.function)
+                # class unpickle = import cost of the actor's module graph
+                self._tls.stages["actor_class_load_ms"] = (
+                    time.perf_counter() - t_load
+                ) * 1e3
+                args, kwargs = self._resolve_args(spec)
+                self._actor_instance = cls(*args, **kwargs)
+                self._note_execute_done()
+                self._actor_id = spec.actor_id
+                return [("inline", self.serde.serialize_to_bytes(None))]
+            if spec.task_type == TaskType.ACTOR_TASK:
+                method_name = self._fn_cache.get(spec.function)
+                if method_name is None:
+                    method_name = cloudpickle.loads(spec.function)
+                    self._fn_cache[spec.function] = method_name
+                args, kwargs = self._resolve_args(spec)
+                if method_name == "__ray_terminate__":
+                    self._send(("actor_exit",))
+                    # unblock the main loop (works from pool threads too,
+                    # where SystemExit would only kill the thread)
+                    self.exec_queue.put(None)
+                    return []
+                method = getattr(self._actor_instance, method_name)
+                result = method(*args, **kwargs)
+                self._note_execute_done()
+            else:
+                fn = self._fn_cache.get(spec.function)
+                if fn is None:
+                    fn = cloudpickle.loads(spec.function)
+                    if len(self._fn_cache) > 256:
+                        self._fn_cache.clear()
+                    self._fn_cache[spec.function] = fn
+                args, kwargs = self._resolve_args(spec)
+                result = fn(*args, **kwargs)
+                self._note_execute_done()
+            if spec.is_streaming:
+                # streaming generator: report items as they are produced
+                # (parity: HandleReportGeneratorItemReturns, task_manager.h:355)
+                reply = getattr(self._tls, "direct_reply", None)
+                stages = getattr(self._tls, "stages", None) or {}
+                t_stream0 = time.perf_counter()
+                yield_ms = 0.0
+                count = 0
+                for item in result:
+                    t_item = time.perf_counter()
+                    if count == 0 and stages is not None:
+                        # TTFT: generator entry -> first item produced
+                        stages["first_yield_ms"] = (t_item - t_stream0) * 1e3
+                    blob = self.serde.serialize_to_bytes(item)
+                    entry = (
+                        ("inline", blob)
+                        if len(blob) <= self.config.max_direct_call_object_size
+                        else ("stored",)
+                    )
+                    item_oid = ObjectID.for_return(spec.task_id, count + 1)
+                    if entry[0] == "stored":
+                        self.store.put_bytes(item_oid, blob)
+                        memplane.record_object(
+                            item_oid,
+                            len(blob),
+                            "stream_item",
+                            callsite=f"task:{spec.name}",
+                        )
+                    if reply is not None:
+                        # direct caller: the item rides its connection; large
+                        # items additionally register at the head so any
+                        # borrower can locate the stored copy
+                        if entry[0] == "stored":
+                            self._send(("submit_put", item_oid))
+                        try:
+                            with reply.send_lock:
+                                reply.conn.send(
+                                    (
+                                        "gen_item",
+                                        spec.task_id.binary(),
+                                        count + 1,
+                                        entry,
+                                        getattr(self, "shm_dir", ""),
+                                    )
+                                )
+                        except (OSError, EOFError, BrokenPipeError):
+                            pass
+                    else:
+                        self._send(("generator_item", spec.task_id, count + 1, entry))
+                    count += 1
+                    yield_ms += (time.perf_counter() - t_item) * 1e3
+                if stages is not None:
+                    stages["stream_items"] = count
+                    # serialize+commit+send cost of yielded items; the
+                    # remainder of the loop wall time is generator execution
+                    stages["stream_yield_ms"] = yield_ms
+                    stages["execute_ms"] = (
+                        (time.perf_counter() - t_stream0) * 1e3 - yield_ms
+                    )
+                return [("inline", self.serde.serialize_to_bytes(count))]
+            return self._store_results(spec, result)
+        except SystemExit:
+            raise
+        except BaseException as e:  # noqa: BLE001
+            tb = traceback.format_exc()
+            prov = {
+                "task_id": spec.task_id.hex(),
+                "pid": os.getpid(),
+                "node_id": "127.0.0.1",
+            }
+            if isinstance(e, exc.TaskError):
+                err = e  # error from an upstream dependency: propagate as-is
+            else:
+                err = exc.TaskError(
+                    spec.name or "task",
+                    tb,
+                    e if isinstance(e, Exception) else None,
+                    **prov,
+                )
+            try:
+                # cloudpickle: user exception classes defined in the driver's
+                # __main__ don't exist in this process and need by-value
+                # pickling to survive the trip back
+                blob = cloudpickle.dumps(err)
+            except Exception:
+                err = exc.TaskError(spec.name or "task", tb, None, **prov)
+                blob = pickle.dumps(err)
+            return [("error", blob)] * max(1, spec.num_returns)
+        finally:
+            if span_cm is not None:
+                span_cm.__exit__(None, None, None)
+            if trace_ctx is not None:
+                _tracing.deactivate()
+            try:
+                from ray_tpu_torch._private import sampler as _sampler
+
+                _sampler.note_thread_task(None, None)
+            except Exception:
+                pass
+            if saved_env:
+                self._restore_env(saved_env)
+            self.current_task_id = None
+
+    def _note_execute_done(self) -> None:
+        stages = getattr(self._tls, "stages", None)
+        if stages is not None and "_args_done" in stages:
+            stages["execute_ms"] = (
+                time.perf_counter() - stages.pop("_args_done")
+            ) * 1e3
+
+
+class _TeeStream:
+    """Line-buffered tee: worker prints go to the original stream AND to the
+    driver (parity: the reference's log monitor attributing worker
+    stdout/stderr to tasks/jobs, python/ray/_private/log_monitor.py:1).
+
+    Each line becomes a structured record — timestamp, severity guess,
+    current task/actor/job id (per-thread TLS, so threaded actors attribute
+    correctly) — shipped in telemetry batches instead of one pipe send per
+    line. When the telemetry plane is disabled the raw line falls back to
+    the legacy per-line ``("log", ...)`` pipe message so ``log_to_driver``
+    keeps working."""
+
+    def __init__(self, original, rt, name: str):
+        self._original = original
+        self._rt = rt
+        self._name = name
+        # PER-THREAD line buffers: print() issues separate write("text") /
+        # write("\n") calls, so a process-wide buffer interleaves concurrent
+        # threaded-actor prints into merged lines attributed to whichever
+        # thread wrote the newline. Keyed by thread ident (each thread only
+        # touches its own slot) instead of threading.local so flush_all()
+        # at worker exit can drain EVERY thread's residue, not just the
+        # main thread's.
+        self._bufs: Dict[int, str] = {}
+        self._bufs_lock = threading.Lock()
+        self._pid = os.getpid()
+
+    def _emit(self, lines, ctx=None):
+        """ctx: (task_id, actor_id) captured at write time — used when the
+        emitting thread is not the one that printed (flush_all from the
+        exit/drain path); None reads the calling thread's TLS."""
+        from ray_tpu_torch._private import telemetry
+
+        structured = telemetry.enabled()
+        urgent = False
+        for line in lines:
+            if structured:
+                if ctx is not None:
+                    tid, aid = ctx
+                else:
+                    tid = self._rt.current_task_id
+                    aid = self._rt._actor_id
+                sev = telemetry.guess_severity(line, self._name)
+                urgent = urgent or sev == "ERROR"
+                telemetry.record_log(
+                    {
+                        "time": time.time(),
+                        "sev": sev,
+                        "stream": self._name,
+                        "pid": self._pid,
+                        "task_id": tid.hex() if tid else None,
+                        "actor_id": aid.hex() if aid else None,
+                        "job_id": tid.job_id().hex() if tid else None,
+                        "line": line,
+                    }
+                )
+            else:
+                try:
+                    self._rt._send(("log", self._name, self._pid, line))
+                except Exception:
+                    pass
+        if urgent:
+            # error-looking output is what forensics reads after a crash:
+            # wake the flusher now instead of waiting out the interval (a
+            # SIGKILL between print and the next cadence would lose it)
+            telemetry.get_buffer().wake()
+
+    def write(self, text):
+        try:
+            self._original.write(text)
+        except Exception:
+            pass
+        ident = threading.get_ident()
+        with self._bufs_lock:
+            entry = self._bufs.get(ident)
+            buf = (entry[0] if entry else "") + text
+            lines = buf.split("\n")
+            residue = lines.pop()  # trailing partial line stays buffered
+            if residue:
+                # capture the printing thread's task context WITH the
+                # residue, so an exit-path flush from another thread still
+                # attributes it correctly
+                self._bufs[ident] = (
+                    residue,
+                    (self._rt.current_task_id, self._rt._actor_id),
+                )
+            else:
+                self._bufs.pop(ident, None)
+        lines = [line for line in lines if line]
+        if lines:
+            try:
+                self._emit(lines)
+            except Exception:
+                pass
+        return len(text)
+
+    def flush(self):
+        # ship the calling thread's trailing partial line too: text printed
+        # without a final newline (progress bars, sys.stdout.write) used to
+        # sit buffered forever and vanish at worker exit
+        with self._bufs_lock:
+            entry = self._bufs.pop(threading.get_ident(), None)
+        if entry is not None:
+            try:
+                self._emit([entry[0]], ctx=entry[1])
+            except Exception:
+                pass
+        try:
+            self._original.flush()
+        except Exception:
+            pass
+
+    def flush_all(self):
+        """Worker exit: drain EVERY thread's residue (threaded-actor pool
+        threads can't flush themselves once the loop stops), each under the
+        task context captured when it was buffered."""
+        with self._bufs_lock:
+            entries = list(self._bufs.values())
+            self._bufs.clear()
+        for residue, ctx in entries:
+            try:
+                self._emit([residue], ctx=ctx)
+            except Exception:
+                pass
+        try:
+            self._original.flush()
+        except Exception:
+            pass
+
+    def __getattr__(self, name):
+        return getattr(self._original, name)
+
+
+def worker_main(conn, worker_id_bin: bytes, shm_dir: str, fallback_dir: str, config_blob: bytes):
+    """Entry point for spawned worker processes."""
+    t_boot = time.perf_counter()
+    # boot-stage decomposition (control-plane observability): stamps ride
+    # the EXISTING ready ack as an optional third element, splitting the
+    # head-observed spawn latency into import / store_connect /
+    # runtime_init / serve_bind (the fork gap is the remainder)
+    boot_stages: Dict[str, float] = {}
+    if os.environ.get("RAY_TPU_TORCH_BOOT_TRACE"):
+        import sys as _sys
+
+        _sys.stderr.write(f"BOOT enter {time.monotonic():.4f}\n")
+    import ray_tpu_torch._private.worker as worker_mod
+    from ray_tpu_torch._private import fastcopy
+    from ray_tpu_torch._private.native_store import create_store_client
+
+    fastcopy.set_worker_mode()  # share copy cores with sibling workers
+    config = pickle.loads(config_blob)
+    worker_id = WorkerID(worker_id_bin)
+    from ray_tpu_torch._private import external_storage as _xstorage
+
+    boot_stages["import_ms"] = (time.perf_counter() - t_boot) * 1e3
+    t_mark = time.perf_counter()
+    store = create_store_client(
+        shm_dir,
+        fallback_dir,
+        config.object_store_memory,
+        spill_uri=(
+            config.spill_directory
+            if _xstorage.has_scheme(config.spill_directory)
+            else ""
+        ),
+    )
+    boot_stages["store_connect_ms"] = (time.perf_counter() - t_mark) * 1e3
+    t_mark = time.perf_counter()
+    rt = WorkerRuntime(conn, worker_id, store, config)
+    # node identity for same-node checks (e.g. compiled-DAG channel
+    # placement): workers on one node share this shm dir
+    rt.shm_dir = shm_dir
+    worker_mod._set_worker_runtime(rt)
+
+    tee_streams = []
+    # the tee feeds BOTH consumers — driver echo (log_to_driver) and the
+    # persisted session logs (persist_worker_logs); the scheduler decides
+    # per-batch which of the two applies, so install it if either is on
+    if config.log_to_driver or getattr(config, "persist_worker_logs", True):
+        sys.stdout = _TeeStream(sys.stdout, rt, "stdout")
+        sys.stderr = _TeeStream(sys.stderr, rt, "stderr")
+        tee_streams = [sys.stdout, sys.stderr]
+
+    def _on_sigterm(signum, frame):
+        # a terminate() (memory-monitor kill, force-cancel) must still drain
+        # buffered log records — the dying task's output is exactly what
+        # forensics reads afterwards. Drain from a SIDE thread (the handler
+        # runs mid-bytecode and could be holding the very locks a flush
+        # needs), then hard-exit: os._exit closes the pipe abruptly so the
+        # head still sees a NON-graceful death and retries/fails the
+        # running task exactly as an uncaught SIGTERM did.
+        def _drain_and_die():
+            from ray_tpu_torch._private import telemetry as _tele
+
+            # checkpoint plane: a preempted worker gets one bounded window
+            # for a best-effort final snapshot — user-registered hooks may
+            # train.report(checkpoint=) one last time, and any live
+            # CheckpointManager drains its commit queue so barriered saves
+            # reach COMMIT before the process dies
+            _ckpt = sys.modules.get("ray_tpu_torch.train.checkpointing")
+            if _ckpt is not None:  # only if this worker actually trained
+                try:
+                    _ckpt.run_preemption_hooks(timeout_s=2.0)
+                except Exception:
+                    pass
+            for tee in tee_streams:
+                try:
+                    tee.flush_all()
+                except Exception:
+                    pass
+            try:
+                _tele.flush()
+            except Exception:
+                pass
+            os._exit(143)
+
+        threading.Thread(target=_drain_and_die, daemon=True).start()
+        # backstop: if a flush wedges on a dead pipe, die anyway
+        t = threading.Timer(3.0, os._exit, args=(143,))
+        t.daemon = True
+        t.start()
+
+    import signal as _signal
+
+    try:
+        _signal.signal(_signal.SIGTERM, _on_sigterm)
+    except (ValueError, OSError):
+        pass  # non-main thread / unsupported platform: keep default
+
+    reader = threading.Thread(target=rt.reader_loop, name="reader", daemon=True)
+    reader.start()
+
+    # continuous sampling profiler: steady-state rate from config (0 = off;
+    # the `profile` command boosts on demand either way)
+    if getattr(config, "telemetry_enabled", True):
+        from ray_tpu_torch._private import sampler as _sampler_mod
+
+        _sampler_mod.ensure_running(config)
+
+    boot_stages["runtime_init_ms"] = (time.perf_counter() - t_mark) * 1e3
+    t_mark = time.perf_counter()
+    # direct actor-call listener (this worker as CALLEE); its address rides
+    # the ready message into the head's worker table for resolve_actors
+    direct_server = None
+    if getattr(config, "direct_actor_calls", True):
+        try:
+            direct_server = DirectServer(rt, "127.0.0.1")
+        except Exception:
+            direct_server = None
+    boot_stages["serve_bind_ms"] = (time.perf_counter() - t_mark) * 1e3
+    if os.environ.get("RAY_TPU_TORCH_BOOT_TRACE"):
+        import sys as _sys
+
+        _sys.stderr.write(f"BOOT ready {time.monotonic():.4f}\n")
+    conn.send(
+        (
+            "ready",
+            direct_server.address if direct_server else None,
+            {k: round(v, 3) for k, v in boot_stages.items()},
+        )
+    )
+
+    pool: Optional[ThreadPoolExecutor] = None
+
+    from ray_tpu_torch._private import telemetry
+
+    def _exec_event(spec, state: str, ts: float, duration_ms=None, stages=None):
+        # worker-side lifecycle half of the telemetry plane: real pid +
+        # wall-clock execution bounds (the scheduler only knows when it
+        # SENT the task), and the only record at all for direct actor
+        # calls, which never touch the head. Batched by the buffer.
+        ev = {
+            "task_id": spec.task_id.hex(),
+            "name": spec.name,
+            "type": spec.task_type.name,
+            "state": state,
+            "time": ts,
+            "pid": os.getpid(),
+            "src": "worker",
+            "duration_ms": duration_ms,
+            "actor_id": spec.actor_id.hex() if spec.actor_id else None,
+        }
+        # tracing plane: worker events join the task's submission-minted
+        # span; the FINISHED event additionally carries the measured stage
+        # decomposition (arg_fetch/execute/result_put/stream)
+        t = spec.trace_ctx
+        if t is not None:
+            ev["trace_id"], ev["span_id"] = t[0], t[1]
+            if len(t) > 2 and t[2]:
+                ev["parent_id"] = t[2]
+        if stages:
+            ev["stages"] = stages
+        telemetry.record_task_event(ev)
+
+    def run_one(item, buffer_ok=False):
+        if isinstance(item, _DirectCall):
+            spec, reply = item.spec, item
+        else:
+            spec, reply = item, None
+        rt._tls.direct_reply = reply
+        t0 = time.time()
+        _exec_event(spec, "RUNNING", t0)
+        try:
+            results = rt.execute(spec)
+        except SystemExit:
+            # sys.exit() in a threaded-actor task must still kill the worker
+            # (a pool future would swallow it and strand the caller)
+            try:
+                rt._send(("actor_exit",))
+            except (EOFError, OSError):
+                pass
+            rt.exec_queue.put(None)
+            return
+        finally:
+            rt._tls.direct_reply = None
+        t1 = time.time()
+        failed = bool(results) and results[0][0] == "error"
+        stages = getattr(rt._tls, "stages", None)
+        rt._tls.stages = None
+        if stages:
+            stages.pop("_args_done", None)
+            stages = {
+                k: (round(v, 3) if isinstance(v, float) else v)
+                for k, v in stages.items()
+            }
+        _exec_event(
+            spec,
+            "FAILED" if failed else "FINISHED",
+            t1,
+            duration_ms=(t1 - t0) * 1e3,
+            stages=stages or None,
+        )
+        if reply is not None:
+            # large returns live in this node's store: register the location
+            # at the head BEFORE the caller learns of them, so a borrower's
+            # ensure_local can always find a copy
+            for i, entry in enumerate(results):
+                if entry[0] == "stored":
+                    try:
+                        rt._send(("submit_put", ObjectID.for_return(spec.task_id, i)))
+                    except (EOFError, OSError):
+                        pass
+            msg = ("result", spec.task_id.binary(), results, getattr(rt, "shm_dir", ""))
+            if buffer_ok:
+                item.buf.items.append(msg)
+                return
+            try:
+                with reply.send_lock:
+                    reply.conn.send(msg)
+            except (OSError, EOFError, BrokenPipeError):
+                pass
+            return
+        try:
+            rt._send(("task_done", spec.task_id, results, _cuda_initialized()))
+        except (EOFError, OSError):
+            pass
+
+    # single-slot reply batching: results for one caller's consecutive
+    # serial calls accumulate and flush when the queue drains, the batch
+    # caps, or execution switches to another caller's connection
+    pending_buf: Optional[_ReplyBuf] = None
+    try:
+        while True:
+            item = rt.exec_queue.get()
+            if item is None:
+                break
+            buf = item.buf if isinstance(item, _DirectCall) else None
+            if pending_buf is not None and buf is not pending_buf:
+                pending_buf.flush()
+                pending_buf = None
+            spec = item.spec if isinstance(item, _DirectCall) else item
+            if spec.task_type == TaskType.ACTOR_CREATION:
+                run_one(item)
+                if spec.max_concurrency > 1:
+                    pool = ThreadPoolExecutor(
+                        max_workers=spec.max_concurrency, thread_name_prefix="actor"
+                    )
+            elif spec.task_type == TaskType.ACTOR_TASK and pool is not None:
+                pool.submit(run_one, item)
+            elif buf is not None and spec.task_type == TaskType.ACTOR_TASK:
+                run_one(item, buffer_ok=True)
+                if len(buf.items) >= 16 or rt.exec_queue.empty():
+                    buf.flush()
+                    pending_buf = None
+                else:
+                    pending_buf = buf
+            else:
+                run_one(item)
+    except SystemExit:
+        pass
+    finally:
+        if pending_buf is not None:
+            pending_buf.flush()
+        for tee in tee_streams:  # residual partial lines precede the batch
+            try:
+                tee.flush_all()  # every thread's residue, not just main's
+            except Exception:
+                pass
+        try:  # last telemetry batch out before the pipe closes
+            from ray_tpu_torch._private import sampler as _sampler_mod
+
+            _sampler_mod.get_sampler().drain()
+            telemetry.flush()
+        except Exception:
+            pass
+        if direct_server is not None:
+            direct_server.close()
+        if pool is not None:
+            pool.shutdown(wait=False)
+        store.close()
+        try:
+            conn.close()
+        except OSError:
+            pass

@@ -8,15 +8,16 @@ gloo on the CPU where the caller asks for it (the tests). The address is
 given explicitly, as ``jax.distributed.initialize`` takes it: nothing on a
 machine tells a rank of its cluster.
 
-``rendezvous_via_kv`` (agreeing on the address through the runtime's KV
-store) needs the actor runtime, which the port does not import; its
-callers pass the address themselves.
+Ranks that run as actors or tasks of the port's runtime can agree on the
+address through its KV store instead: ``rendezvous_via_kv``, then
+``release_rendezvous`` once the group is up.
 """
 
 from __future__ import annotations
 
 import datetime
 import socket
+import time
 from typing import Optional
 
 import torch
@@ -24,6 +25,7 @@ import torch.distributed as dist
 
 from ray_tpu_torch._device import DeviceLike, resolve_device
 
+_NAMESPACE = "torch_rendezvous"
 _device: Optional[torch.device] = None
 
 
@@ -104,3 +106,41 @@ def shutdown() -> None:
     if dist.is_initialized():
         dist.destroy_process_group()
     _device = None
+
+
+def rendezvous_via_kv(
+    rt,
+    key: str,
+    rank: int,
+    world: int,
+    *,
+    node_ip: str = "127.0.0.1",
+    timeout_s: float = 120.0,
+) -> str:
+    """Agree on a coordinator address through the cluster KV.
+
+    Rank 0 reserves a port and publishes ``ip:port`` under ``key``; everyone
+    polls until it appears. Returns the coordinator address, which
+    ``initialize`` takes. ``rt`` is the runtime
+    (``ray_tpu_torch._private.worker.get_runtime()``), in a worker or the
+    driver.
+    """
+    if rank == 0:
+        addr = f"{node_ip}:{free_port()}"
+        rt.rpc("kv_put", _NAMESPACE, key.encode(), addr.encode(), True)
+        return addr
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline:
+        raw = rt.rpc("kv_get", _NAMESPACE, key.encode())
+        if raw:
+            return raw.decode()
+        time.sleep(0.05)
+    raise RuntimeError(f"process-group rendezvous timed out on key {key!r}")
+
+
+def release_rendezvous(rt, key: str) -> None:
+    """Drop the published coordinator address (rank 0, once the group is up)."""
+    try:
+        rt.rpc("kv_del", _NAMESPACE, key.encode())
+    except Exception:
+        pass

@@ -1,5 +1,5 @@
 """Reinforcement learning library of the port (RLlib equivalent, new-stack
-shape): PyTorch counterpart of ``ray_tpu.rl``, single device.
+shape): PyTorch counterpart of ``ray_tpu.rl``, one learner device.
 
 The same public names, fluent configs and parameter trees as the reference:
 ``PPOConfig().environment(...).env_runners(...).training(...).build(device=...)``
@@ -8,10 +8,11 @@ on ``device`` (default ``"cuda"``; raises without a card). ``train()``,
 ``evaluate()``, ``compute_single_action()``, ``save``/``restore`` and
 ``get_state``/``set_state`` (numpy trees in the reference's layout, so a
 JAX algorithm's ``get_state()["params"]`` loads into the port's) as there.
-Envs, connectors and replay are numpy. Not in the port: remote env runners
-and the multi-process learner group (they need an actor runtime) and a
-learner over more than one device (it needs a mesh); asking for them
-raises ``NotImplementedError``.
+Envs, connectors and replay are numpy. Remote env runners
+(``num_env_runners > 0``) are CPU actors on the port's runtime, elastic as
+the reference's (``EnvRunnerGroup.restore``). Not in the port yet: the
+multi-process learner group and a learner over more than one device;
+asking for them raises ``NotImplementedError``.
 """
 
 from ray_tpu_torch.rl.appo import APPO, APPOConfig

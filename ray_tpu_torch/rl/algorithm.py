@@ -7,8 +7,8 @@ Parity: ``rllib/algorithms/algorithm.py:229`` (Tune-Trainable shape:
 
 An algorithm runs its learner, and its local env runner's policy, on one
 device: ``build(device="cuda")`` by default, which raises without a card.
-The port has no actor runtime, so remote env runners
-(``num_env_runners > 0``) raise ``NotImplementedError``.
+Remote env runners (``num_env_runners > 0``) are CPU actors on the port's
+runtime (``ray_tpu_torch.init()`` first).
 """
 
 from __future__ import annotations
@@ -74,10 +74,6 @@ class Algorithm:
     train(), greedy inference and evaluation."""
 
     def __init__(self, config: AlgorithmConfig, device="cuda"):
-        if int(config.num_env_runners) > 0:
-            raise NotImplementedError(
-                "num_env_runners > 0 needs remote env-runner actors, which the port does not "
-                "have; use num_env_runners=0 (the local runner)")
         self.config = config
         self.device = resolve_device(device)
         self.iteration = 0

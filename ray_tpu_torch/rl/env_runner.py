@@ -1,23 +1,28 @@
 """EnvRunner: samples rollouts with the current policy (port of
-``ray_tpu/rl/env_runner.py``, local runner only).
+``ray_tpu/rl/env_runner.py``).
 
 Parity: ``SingleAgentEnvRunner.sample`` (``rllib/env/single_agent_env_runner.py:131``)
-— a driver-local runner (``num_env_runners=0``) stepping vectorized numpy
-envs with the policy on the algorithm's device. Each env step moves the
-observations to the device and the actions, log-probabilities and values
-back, as the reference's ``np.asarray`` calls do. Remote runners, and the
-elastic group that replaces them, need the actor runtime: the port has
-none, and ``EnvRunnerGroup`` raises for ``num_env_runners > 0``.
+— remote runner actors on the port's runtime, or a driver-local runner
+(``num_env_runners=0``), stepping vectorized numpy envs. The local runner
+acts on the algorithm's device: each env step moves the observations there
+and the actions, log-probabilities and values back, as the reference's
+``np.asarray`` calls do. Remote runners ask for no accelerator, as the
+reference's runner actors do, and act on the CPU; the group sends them the
+parameters as numpy and tolerates their loss (``rllib/utils/actor_manager.py``
+role).
 """
 
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
+import ray_tpu_torch
 from ray_tpu_torch._device import resolve_device
+from ray_tpu_torch.rl.optim import to_numpy
+from ray_tpu_torch.weights import params_from_jax
 
 
 def resolve_obs_dim(config, spec) -> int:
@@ -77,6 +82,13 @@ class EnvRunner:
 
     @torch.no_grad()
     def sample(self, params) -> Dict[str, np.ndarray]:
+        """One rollout of ``rollout_len`` steps. ``params`` is a tree of
+        tensors, or of numpy arrays (what the group sends a remote runner),
+        which are carried to ``device`` first."""
+        from ray_tpu_torch.rl.models import tree_leaves
+
+        if not isinstance(tree_leaves(params)[0], torch.Tensor):
+            params = params_from_jax(params, device=self.device)
         T, N = self.rollout_len, self.vec.n
         obs_buf = np.empty((T, N, self.obs.shape[-1]), np.float32)
         act_buf = np.empty((T, N), np.int32)
@@ -119,30 +131,99 @@ class EnvRunner:
         }
 
 
+RemoteEnvRunner = ray_tpu_torch.remote(EnvRunner)
+
+
 class EnvRunnerGroup:
-    """One local (in-driver) runner. ``num_env_runners > 0`` asks for
-    remote runner actors, which the port does not have: it raises."""
+    """num_env_runners remote runners, or one local (in-driver) runner.
+
+    Elastic fault tolerance (parity: ``FaultTolerantActorManager``,
+    ``rllib/utils/actor_manager.py:1``): dead runners are dropped on sample
+    and ``restore()`` replaces them up to the configured count, so sampling
+    survives runner loss and heals. Remote runner k (from 1) is seeded
+    ``seed + 1000 * k`` and acts on the CPU; ``device`` is the local
+    runner's."""
 
     def __init__(self, env_creator, num_env_runners: int, num_envs_per_runner: int,
                  rollout_len: int, seed: int = 0, connectors=None, *, device="cuda"):
-        if num_env_runners:
-            raise NotImplementedError(
-                "remote env runners need the actor runtime, which the port does not have; "
-                "use num_env_runners=0")
-        self.local = EnvRunner(
-            env_creator, num_envs_per_runner, rollout_len, seed,
-            connectors=connectors, device=device,
+        self.local: Optional[EnvRunner] = None
+        self.remote: List = []
+        self._env_creator = env_creator
+        self._num_envs = num_envs_per_runner
+        self._rollout_len = rollout_len
+        self._seed = seed
+        self._connectors = connectors  # factory: fresh pipeline per runner
+        self._target = num_env_runners
+        self._spawned = 0
+        if num_env_runners == 0:
+            self.local = EnvRunner(
+                env_creator, num_envs_per_runner, rollout_len, seed,
+                connectors=connectors, device=device,
+            )
+        else:
+            for _ in range(num_env_runners):
+                self._spawn()
+
+    def _spawn(self):
+        self._spawned += 1
+        self.remote.append(
+            RemoteEnvRunner.remote(
+                self._env_creator,
+                self._num_envs,
+                self._rollout_len,
+                self._seed + 1000 * self._spawned,
+                connectors=self._connectors,
+                device="cpu",
+            )
         )
 
     def num_healthy(self) -> int:
-        return 1
+        return 1 if self.local is not None else len(self.remote)
 
     def connector_state(self):
-        """The local runner's trained env-to-module connector state."""
-        return self.local.get_connector_state()
+        """The trained env-to-module connector state, wherever the runners
+        live: the local runner's pipeline state, or the first healthy
+        remote runner's (remote runners see the same stream statistics)."""
+        if self.local is not None:
+            return self.local.get_connector_state()
+        for r in list(self.remote):
+            try:
+                return ray_tpu_torch.get(r.get_connector_state.remote(), timeout=60)
+            except Exception:
+                continue
+        return None
+
+    def restore(self, min_runners: Optional[int] = None) -> int:
+        """Replace dead runners up to the original target; returns how many
+        fresh runners were started."""
+        if self.local is not None:
+            return 0
+        want = self._target if min_runners is None else min_runners
+        started = 0
+        while len(self.remote) < want:
+            self._spawn()
+            started += 1
+        return started
 
     def sample(self, params) -> List[Dict[str, np.ndarray]]:
-        return [self.local.sample(params)]
+        if self.local is not None:
+            return [self.local.sample(params)]
+        host_params = to_numpy(params)
+        refs = [r.sample.remote(host_params) for r in self.remote]
+        out = []
+        for r, ref in zip(list(self.remote), refs):
+            try:
+                out.append(ray_tpu_torch.get(ref, timeout=300))
+            except Exception:
+                # elastic sampling: drop the dead runner, keep the rest
+                self.remote.remove(r)
+        if not out:
+            raise RuntimeError("all env runners failed")
+        return out
 
     def stop(self):
-        pass
+        for r in self.remote:
+            try:
+                ray_tpu_torch.kill(r)
+            except Exception:
+                pass

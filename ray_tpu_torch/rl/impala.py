@@ -6,8 +6,9 @@ al. 2018). The reference's learner is one jitted SPMD program over a
 ``data``-axis mesh, or a group of learner processes; the port's learner is
 one clipped Adam step on one device. ``num_learner_devices > 1`` (several
 devices driven from one process, where the port's mesh runs one rank per
-process) and ``num_learner_workers > 1`` (an actor runtime) are not
-ported: both raise ``NotImplementedError``. The batch keeps the reference's lane mask
+process) and ``num_learner_workers > 1`` (learner actors, a later slice)
+are not ported: both raise ``NotImplementedError``. Env runners may be
+remote (``num_env_runners > 0``). The batch keeps the reference's lane mask
 (padded env lanes weigh nothing in the loss).
 """
 
@@ -154,7 +155,7 @@ class IMPALA(Algorithm):
                 "port's mesh runs one rank per process) is not ported; use one learner device")
         if int(config.num_learner_workers) > 1:
             raise NotImplementedError(
-                "num_learner_workers > 1 needs learner actors, which the port does not have")
+                "num_learner_workers > 1 (a group of learner actors) is a later slice of the port")
         super().__init__(config, device)
         spec = make_env(config.env).spec
         obs_dim = resolve_obs_dim(config, spec)
@@ -188,6 +189,7 @@ class IMPALA(Algorithm):
 
     def training_step(self) -> Dict[str, Any]:
         rollouts = self.runners.sample(self.params)
+        self.runners.restore(min_runners=None)  # replace any dead runners
         # concatenate runner rollouts along the env axis
         batch = {
             k: np.concatenate([r[k] for r in rollouts], axis=1)
