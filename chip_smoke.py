@@ -31,7 +31,19 @@ model through the mesh entry points (``distributed.initialize``,
 on a one-rank NCCL group, 3 steps from the same seed and batch, held to
 the single-device steps. At one rank every axis is trivial, so no
 collective runs there: the phase shows the mesh path's set-up and its
-step at full size, not NCCL or the gathers. Phase ``spmd_tensor2``: two
+step at full size, not NCCL or the gathers. Before it, the Train library
+on the port's runtime (``phase_train_lib``): phase ``train_gpu`` runs
+phase_train's GPT-J-6B step through ``DataParallelTrainer`` in a
+``use_gpu`` worker's own process for 3 steps (``train.report`` each
+step), held to phase_train's losses, with the flash launches counted in
+that process; phase ``train_restart`` trains the scaled-down GPT-J of
+``examples/gptj_finetune.py`` (head_dim 64) through a checkpoint, an
+injected failure and a restart from the checkpoint, against an
+uninterrupted run, each attempt's worker in a one-rank NCCL group that the
+trainer joins and destroys; phase ``rl_learner_group`` runs an IMPALA
+update through an ``SPMDLearnerGroup`` of one GPU learner actor (a one-rank
+NCCL group, its all-reduces included) against the in-process learner on
+the card. Phase ``spmd_tensor2``: two
 rank processes sharing the card through gloo on CUDA tensors (NCCL
 refuses two ranks on one device) train GPT-J's width at 4 layers on a
 tensor=2 mesh, held to the single-device step; this is the phase where
@@ -1740,6 +1752,315 @@ def phase_spmd_tensor2(smi, steps: int = 3):
 # Phase runtime_gpu's requests: three prompts of 16-1500 tokens served
 # together, then the middle one alone, 32 greedy tokens each, through the
 # driver's own LLMServer (before it drops its model) and through an actor's.
+# phase train_gpu: the Train library's trainer runs phase_train's step in a
+# GPU worker's own process, from the same seed, batch and learning rate; it
+# is the same program on the same card, so its losses are held to
+# phase_train's as spmd_mesh1's are (a few fp32 steps for reduction order).
+# phase train_restart: the scaled-down GPT-J of examples/gptj_finetune.py
+# (d_model 512, 4 layers, 8 heads of 64, d_ff 2048, vocab 50432), B=4,
+# S=256, one batch per step from the step's seed, TRAIN_RESTART_STEPS AdamW
+# steps: a checkpoint at step 2, one injected failure after step 3, resumed
+# by FailureConfig(max_failures=1) from the checkpoint (parameters and
+# AdamW moments restored bit for bit), against an uninterrupted run. Both
+# runs ask for use_torch_distributed: each attempt's worker joins a one-rank
+# NCCL group through the KV, and after each fit no rendezvous key is left
+# (rank 0 drops it only once its group is destroyed).
+# Per step, relative to the reference value:
+TRAIN_GPU_LOSS_RTOL = 1e-6
+TRAIN_RESTART_STEPS, TRAIN_RESTART_CKPT, TRAIN_RESTART_FAIL = 5, 2, 3
+TRAIN_RESTART_CFG = dict(vocab_size=50432, d_model=512, n_layers=4, n_heads=8, d_ff=2048,
+                         max_seq_len=512, parallel_block=True, use_swiglu=False)
+
+
+def _train_gpu_loop(config):
+    """GPT-J-6B's training step in a train worker's own process: phase_train's
+    seed, batch and learning rate; one ``train.report`` per step, carrying
+    the step's loss, its CUDA-event time, the flash launches this process
+    made in it, the peak memory and the time the earlier reports took."""
+    import os
+    import sys
+
+    import numpy as np
+
+    from ray_tpu_torch import train
+    from ray_tpu_torch.kernels.flash_attention import flash_attention, flash_attention_backward
+    from ray_tpu_torch.models.transformer import GPTJ_6B
+    from ray_tpu_torch.parallel.spmd import build_lm_train_step
+
+    torch.cuda.reset_peak_memory_stats()
+    bundle = build_lm_train_step(GPTJ_6B, learning_rate=config["lr"])
+    state = bundle.init_state(config["seed"])
+    tokens = np.random.default_rng(0).integers(0, GPTJ_6B.vocab_size - 1, (1, 2048),
+                                               dtype=np.int32)
+    tok, tgt = bundle.shard_batch(tokens, np.roll(tokens, -1, axis=1))
+    out = dict(pid=os.getpid(), cuda_visible_devices=os.environ.get("CUDA_VISIBLE_DEVICES"),
+               device_count=torch.cuda.device_count(), device=str(tok.device),
+               jax_loaded=sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "ray_tpu")),
+               losses=[], step_ms=[], launches_per_step=[], report_ms=[])
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    for _ in range(config["steps"]):
+        before = (flash_attention.launches, flash_attention_backward.launches)
+        start.record()
+        state, metrics = bundle.step_fn(state, tok, tgt)
+        end.record()
+        torch.cuda.synchronize()
+        out["step_ms"].append(start.elapsed_time(end))
+        out["losses"].append(metrics["loss"].item())
+        out["launches_per_step"].append([flash_attention.launches - before[0],
+                                         flash_attention_backward.launches - before[1]])
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        t0 = time.perf_counter()
+        train.report(dict(out))
+        out["report_ms"].append((time.perf_counter() - t0) * 1e3)
+
+
+def _train_restart_loop(config):
+    """The scaled-down GPT-J through the trainer: a checkpoint (parameters,
+    AdamW moments, progress) at ``checkpoint_at``, an injected failure after
+    ``fail_at`` (once: a marker file), resume from the latest checkpoint.
+    Each step appends this process's flash launches to ``ledger``."""
+    import json
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from ray_tpu_torch import train
+    from ray_tpu_torch.kernels.flash_attention import flash_attention, flash_attention_backward
+    from ray_tpu_torch.models.transformer import TransformerConfig
+    from ray_tpu_torch.parallel.spmd import build_lm_train_step
+
+    import torch.distributed as dist
+
+    cfg = TransformerConfig(**config["cfg"])
+    group = [dist.get_backend(), dist.get_world_size()] if dist.is_initialized() else None
+    bundle = build_lm_train_step(cfg, learning_rate=config["lr"])
+    state = bundle.init_state(0)
+    progress = {"step": 0, "losses": []}
+    ckpt = train.get_checkpoint()
+    if ckpt is not None:
+        state = train.load_pytree(ckpt.path, target=state)
+        with open(os.path.join(ckpt.path, "progress.json")) as fh:
+            progress = json.load(fh)
+    losses = list(progress["losses"])
+    for step in range(progress["step"] + 1, config["steps"] + 1):
+        tokens = np.random.default_rng(step).integers(
+            0, cfg.vocab_size - 1, (config["batch"], config["seq"]), dtype=np.int32)
+        tok, tgt = bundle.shard_batch(tokens, np.roll(tokens, -1, axis=1))
+        before = (flash_attention.launches, flash_attention_backward.launches)
+        state, metrics = bundle.step_fn(state, tok, tgt)
+        losses.append(metrics["loss"].item())
+        with open(config["ledger"], "a") as fh:
+            fh.write(f"{os.getpid()} {step} {flash_attention.launches - before[0]} "
+                     f"{flash_attention_backward.launches - before[1]}\n")
+        checkpoint = None
+        if step == config["checkpoint_at"]:
+            d = tempfile.mkdtemp(prefix="train_restart_")
+            train.save_pytree(state, d)
+            with open(os.path.join(d, "progress.json"), "w") as fh:
+                json.dump({"step": step, "losses": losses}, fh)
+            checkpoint = train.Checkpoint.from_directory(d)
+        train.report({"losses": list(losses), "resumed_from": progress["step"],
+                      "process_group": group}, checkpoint=checkpoint)
+        if step == config.get("fail_at") and not os.path.exists(config["marker"]):
+            open(config["marker"], "w").close()
+            raise RuntimeError(f"injected failure after step {step}")
+
+
+def _read_ledger(path):
+    """{pid: [steps, flash forward launches, backward launches]}."""
+    out = {}
+    with open(path) as fh:
+        for line in fh:
+            pid, step, fwd, bwd = (int(x) for x in line.split())
+            row = out.setdefault(pid, [[], 0, 0])
+            row[0].append(step)
+            row[1] += fwd
+            row[2] += bwd
+    return out
+
+
+def phase_train_lib(smi, single: dict) -> dict:
+    """The Train library and RL's learner group on the card, on the port's
+    runtime: phases train_gpu, train_restart and rl_learner_group. Returns
+    the flash launches each training phase made in its workers."""
+    import os
+    import shutil
+    import tempfile
+
+    import ray_tpu_torch
+    from ray_tpu_torch._private.worker import get_runtime
+    from ray_tpu_torch.models.transformer import GPTJ_6B
+    from ray_tpu_torch.train import (DataParallelTrainer, FailureConfig, RunConfig,
+                                     ScalingConfig)
+
+    storage = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    counts = {}
+    t0 = time.perf_counter()
+    ray_tpu_torch.init()
+    init_ms = (time.perf_counter() - t0) * 1e3
+    try:
+        # train_gpu: this process holds no model while its worker trains
+        own_gib = torch.cuda.memory_allocated() / 2**30
+        steps = 3
+        t0 = time.perf_counter()
+        result = DataParallelTrainer(
+            _train_gpu_loop, train_loop_config={"steps": steps, "lr": 1e-4, "seed": 0},
+            scaling_config=ScalingConfig(num_workers=1, use_gpu=True),
+            run_config=RunConfig(storage_path=storage, name="train_gpu"),
+        ).fit()
+        fit_s = time.perf_counter() - t0
+        if result.error is not None:
+            raise AssertionError(f"train_gpu: the trainer failed: {result.error!r}")
+        m = result.metrics
+        want = single["losses"][:steps]
+        rel = [abs(a - b) / abs(b) for a, b in zip(m["losses"], want)]
+        per_step = m["launches_per_step"]
+        counts["train_gpu_worker"] = [sum(p[0] for p in per_step), sum(p[1] for p in per_step)]
+        row = dict(config="GPTJ_6B", tokens=[1, 2048], steps=steps, card=smi, init_ms=init_ms,
+                   smoke_process_allocated_gib_during_fit=own_gib, fit_s=fit_s,
+                   worker={k: m[k] for k in ("pid", "cuda_visible_devices", "device_count",
+                                             "device", "jax_loaded")},
+                   losses=m["losses"], phase_train_losses=want, loss_rel_diff=rel,
+                   tol=dict(loss_rtol=TRAIN_GPU_LOSS_RTOL), step_ms=m["step_ms"],
+                   phase_train_step_ms=single["step_ms"][:steps], peak_gib=m["peak_gib"],
+                   report_overhead_ms=m["report_ms"], launches_per_step=per_step,
+                   training_iteration=m["training_iteration"],
+                   goodput=result.goodput and {k: result.goodput[k]
+                                               for k in ("wall_s", "goodput", "steps_useful")})
+        log("train_gpu", **row)
+        if m["device_count"] != 1 or m["pid"] == os.getpid() or m["jax_loaded"]:
+            raise AssertionError(f"train_gpu: the worker saw {m['device_count']} devices, pid "
+                                 f"{m['pid']} (this process {os.getpid()}), jax modules {m['jax_loaded']}")
+        if own_gib >= 1.0:
+            raise AssertionError(f"train_gpu: this process holds {own_gib} GiB on the card")
+        if m["training_iteration"] != steps or len(m["losses"]) != steps:
+            raise AssertionError(f"train_gpu: {m['training_iteration']} reports for {steps} steps")
+        if any(p != [2 * GPTJ_6B.n_layers, GPTJ_6B.n_layers] for p in per_step):
+            raise AssertionError(f"train_gpu: flash launches per step {per_step}, want "
+                                 f"{[2 * GPTJ_6B.n_layers, GPTJ_6B.n_layers]} each")
+        if any(d > TRAIN_GPU_LOSS_RTOL for d in rel):
+            raise AssertionError(f"train_gpu: losses {m['losses']} beyond phase_train's {want}")
+
+        # train_restart: a checkpoint, one failure, a resume
+        runs = {}
+        for name, fail_at in (("restarted", TRAIN_RESTART_FAIL), ("uninterrupted", None)):
+            ledger = os.path.join(storage, f"{name}.ledger")
+            config = dict(cfg=TRAIN_RESTART_CFG, lr=1e-4, batch=4, seq=256,
+                          steps=TRAIN_RESTART_STEPS, checkpoint_at=TRAIN_RESTART_CKPT,
+                          fail_at=fail_at, marker=os.path.join(storage, f"{name}.failed"),
+                          ledger=ledger)
+            t0 = time.perf_counter()
+            res = DataParallelTrainer(
+                _train_restart_loop, train_loop_config=config,
+                scaling_config=ScalingConfig(num_workers=1, use_gpu=True,
+                                             use_torch_distributed=True),
+                run_config=RunConfig(storage_path=storage, name=f"train_restart_{name}",
+                                     failure_config=FailureConfig(max_failures=1,
+                                                                  retry_backoff_s=0.0)),
+            ).fit()
+            if res.error is not None:
+                raise AssertionError(f"train_restart ({name}): {res.error!r}")
+            runs[name] = dict(fit_s=time.perf_counter() - t0, losses=res.metrics["losses"],
+                              resumed_from=res.metrics["resumed_from"],
+                              process_group=res.metrics["process_group"],
+                              keys_left=get_runtime().rpc("kv_keys", "torch_rendezvous",
+                                                          b"torchdist_"),
+                              training_iteration=res.metrics["training_iteration"],
+                              checkpoint=res.checkpoint.path if res.checkpoint else None,
+                              attempts=_read_ledger(ledger))
+        restarted, calm = runs["restarted"], runs["uninterrupted"]
+        attempts = list(restarted["attempts"].values())
+        counts["train_restart"] = [sum(a[1] for a in attempts), sum(a[2] for a in attempts)]
+        final = (restarted["losses"][-1], calm["losses"][-1])
+        rel = abs(final[0] - final[1]) / abs(final[1])
+        log("train_restart", config=TRAIN_RESTART_CFG, tokens=[4, 256], card=smi,
+            steps=TRAIN_RESTART_STEPS, checkpoint_at=TRAIN_RESTART_CKPT,
+            fail_after=TRAIN_RESTART_FAIL, runs=runs, final_loss_rel_diff=rel,
+            tol=dict(loss_rtol=TRAIN_GPU_LOSS_RTOL), flash_launches=counts["train_restart"])
+        if len(attempts) != 2 or any(a[1] <= 0 or a[2] <= 0 for a in attempts):
+            raise AssertionError(f"train_restart: the kernels did not run in two attempts: "
+                                 f"{restarted['attempts']}")
+        if restarted["resumed_from"] != TRAIN_RESTART_CKPT or calm["resumed_from"] != 0 \
+                or restarted["training_iteration"] != TRAIN_RESTART_STEPS:
+            raise AssertionError(f"train_restart: resumed from {restarted['resumed_from']}, "
+                                 f"{restarted['training_iteration']} iterations")
+        if rel > TRAIN_GPU_LOSS_RTOL or not math.isfinite(final[0]):
+            raise AssertionError(f"train_restart: final loss {final[0]} against the "
+                                 f"uninterrupted run's {final[1]}")
+        for name, run in runs.items():
+            if run["process_group"] != ["nccl", 1] or run["keys_left"]:
+                raise AssertionError(f"train_restart ({name}): process group "
+                                     f"{run['process_group']}, rendezvous keys left "
+                                     f"{run['keys_left']}")
+
+        phase_rl_learner_group(smi)
+    finally:
+        ray_tpu_torch.shutdown()
+        shutil.rmtree(storage, ignore_errors=True)
+    return counts
+
+
+def phase_rl_learner_group(smi) -> None:
+    """An SPMDLearnerGroup of one rank on the card (a ``num_gpus=1`` learner
+    actor): its IMPALA update on phase rl's V-trace batch against the
+    in-process learner's on the card, by the RL rule."""
+    from ray_tpu_torch import rl
+    from ray_tpu_torch.rl.learner_group import SPMDLearnerGroup
+    from ray_tpu_torch.rl.optim import to_numpy
+
+    batch = _rl_batches()["vtrace"]
+    algo = rl.IMPALAConfig().build(device="cuda")
+    cfg = algo.config
+    group_cfg = {"cfg_vals": dict(algo._cfg_vals), "update_builder": "impala", "obs_dim": 4,
+               "num_actions": 2, "hidden": cfg.hidden, "lr": cfg.lr, "grad_clip": cfg.grad_clip,
+               "seed": cfg.seed, "init_params": to_numpy(algo.params), "device": "cuda"}
+    from ray_tpu_torch._private.worker import get_runtime
+
+    t0 = time.perf_counter()
+    group = SPMDLearnerGroup(1, group_cfg, init_timeout_s=300, update_timeout_s=300)
+    start_s = time.perf_counter() - t0
+    # the learner joined its one-rank NCCL group, and rank 0 dropped the key
+    keys_left = get_runtime().rpc("kv_keys", "torch_rendezvous", b"torch_rl_learners_")
+    try:
+        update_ms = []
+        t0 = time.perf_counter()
+        metrics = group.update(batch)
+        update_ms.append((time.perf_counter() - t0) * 1e3)
+        params = group.cached_params()
+        # two more rounds, timed (the state moves on; the check is the first)
+        for _ in range(2):
+            t0 = time.perf_counter()
+            group.update(batch)
+            update_ms.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        group.stop()
+    device_batch = algo._to_device(batch)
+    local_ms = []
+    for i in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = algo._update(algo.params, algo.opt_state, device_batch)[2]
+        torch.cuda.synchronize()
+        local_ms.append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            local = {k: float(v) for k, v in out.items()}
+            local_params = to_numpy(algo.params)
+    row = dict(config="IMPALAConfig(), T=128 x N=16 V-trace batch, last lane masked", card=smi,
+               ranks=group.total_devices, rendezvous_keys_left=keys_left,
+               group_start_s=start_s, group_update_ms=update_ms,
+               local_update_ms=local_ms, metrics=metrics, local_metrics=local,
+               tol=f"|group - in-process| <= {RL_ATOL} + {RL_RTOL} * |in-process|")
+    if sorted(metrics) != sorted(local) or keys_left:
+        raise AssertionError(f"rl_learner_group: metrics {sorted(metrics)} vs {sorted(local)}, "
+                             f"rendezvous keys left {keys_left}")
+    row["metrics_max_abs_err"] = _rl_max_diff(metrics, local)
+    row["params_max_abs_err"] = _rl_max_diff(params, local_params)
+    log("rl_learner_group", **row)
+    algo.stop()
+
+
 RUNTIME_PROMPT_LENGTHS = [16, 700, 1500]
 RUNTIME_NEW_TOKENS = 32
 
@@ -2186,6 +2507,9 @@ def main() -> int:
     # the single-device state is gone with phase_train's frame
     gc.collect()
     torch.cuda.empty_cache()
+    lib_counts = phase_train_lib(smi, train_row)
+    gc.collect()
+    torch.cuda.empty_cache()
     mesh1_counts = phase_spmd_mesh1(smi, train_row)
     gc.collect()
     torch.cuda.empty_cache()
@@ -2215,7 +2539,9 @@ def main() -> int:
                "ring_schedule": ring_counts["flash_attention"],
                "spmd_mesh1": mesh1_counts["flash_attention"],
                "spmd_tensor2": tensor2_counts["flash_attention"],
-               "runtime_gpu_actor": runtime_counts["flash_attention"]}),
+               "runtime_gpu_actor": runtime_counts["flash_attention"],
+               "train_gpu_worker": lib_counts["train_gpu_worker"][0],
+               "train_restart": lib_counts["train_restart"][0]}),
         entry("paged_attention", "ray_tpu_torch/csrc/paged_attention.cu", paged_rows[0],
               counts["paged_attention"],
               {"serve": counts["paged_attention"],
@@ -2231,7 +2557,9 @@ def main() -> int:
                "rl": rl_counts["flash_attention_backward"],
                "ring_schedule": ring_counts["flash_attention_backward"],
                "spmd_mesh1": mesh1_counts["flash_attention_backward"],
-               "spmd_tensor2": tensor2_counts["flash_attention_backward"]}),
+               "spmd_tensor2": tensor2_counts["flash_attention_backward"],
+               "train_gpu_worker": lib_counts["train_gpu_worker"][1],
+               "train_restart": lib_counts["train_restart"][1]}),
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

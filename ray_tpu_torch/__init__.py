@@ -12,10 +12,14 @@ training) and paged attention (decode over the paged pool and over the
 dense cache); see ``ray_tpu_torch.kernels``. The training step is
 ``ray_tpu_torch.parallel.spmd.build_lm_train_step``, on one device or on a
 mesh of ranks (``ray_tpu_torch.parallel``: process groups, the mesh,
-sharding rules, ring attention, GPipe, expert-parallel MoE); checkpoints are
-``ray_tpu_torch.train``'s ``save_pytree`` and ``load_pytree``. The RL
-library (PPO, IMPALA, APPO, DQN, SAC, BC, MARWIL, CQL, multi-agent PPO;
-no kernel) is ``ray_tpu_torch.rl``.
+sharding rules, ring attention, GPipe, expert-parallel MoE). The Train
+library, ``ray_tpu_torch.train``, runs such a step on a gang of worker
+actors (``DataParallelTrainer``, ``TorchTrainer``: ``train.report``,
+checkpoints, restarts; one GPU per worker with ``use_gpu``); pytree
+checkpoints are its ``save_pytree`` and ``load_pytree``. The RL library
+(PPO, IMPALA, APPO, DQN, SAC, BC, MARWIL, CQL, multi-agent PPO; no kernel;
+learner groups of actors for several learner devices) is
+``ray_tpu_torch.rl``.
 
 The package carries its own copy of the core runtime (``ray_tpu_torch.
 _private``: tasks, actors, the object store, the KV store and resource

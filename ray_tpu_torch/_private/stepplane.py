@@ -2,17 +2,16 @@
 
 The tracing plane answers "where did the time go" per *request* and
 the memory plane answers "where did the bytes go" per *object*; this module
-answers the same question for the workload the north star optimizes:
-distributed JAX training steps. Every ``train.report`` boundary closes one
-**step record** per rank, decomposing wall step time into
+answers the same question for distributed training steps. Every
+``train.report`` boundary (``ray_tpu_torch.train``) closes one **step
+record** per rank, decomposing wall step time into
 
-    data_wait (batch-iterator blocking, with per-operator stall attribution
-               from the streaming executor's backpressure state)
-    -> host_to_device (device_put in iter_jax_batches)
+    data_wait (batch-iterator blocking, with per-operator stall attribution;
+               fed by the data library, which the port does not have yet)
+    -> host_to_device (the data iterator's device transfer; likewise)
     -> compile (compile duration events, attributed to the step that
-                triggered them; a recompilation detector flags steps that
-                compile after warmup, with the changed batch shape signature;
-                the port has no compile hook yet, so nothing feeds it)
+                triggered them, with a recompilation detector; the port
+                has no compile hook, so nothing feeds it)
     -> compute (the residual of the loop half of the step)
     -> collective_wait (head-side: cross-rank skew of the pre-report
                         timestamps, naming the straggler rank)
@@ -23,12 +22,12 @@ distributed JAX training steps. Every ``train.report`` boundary closes one
               seams above did not measure)
 
 Worker side: a :class:`StepTimer` per training session, activated
-process-wide so the data iterator and a compile listener can
-publish into the active step without plumbing. Each finalized record RIDES
+process-wide (``train._session._set_session``) so the seams can publish
+into the active step without plumbing. Each finalized record RIDES
 THE NEXT ``train.report`` collector rpc (zero extra messages on the step
 hot path — the memory plane's ride-existing-messages rule; the session's
 last record and any driver-local sessions drain through the telemetry
-ring instead), is drained by the executor, and lands batched (publish
+ring instead), is drained by the train executor, and lands batched (publish
 cadence) in the scheduler's bounded per-run :class:`StepIndex`, which
 computes the cross-rank skew once every rank's record for a step has
 landed and keeps run-level stage aggregates for evicted steps.
@@ -40,9 +39,9 @@ cause (recovery, gang_restart, preemption, checkpoint_drain,
 admission_wait) so a chaos run's goodput loss sums to its attributed
 downtime.
 
-Surfaces: ``ray_tpu_torch.train_timeline(run)``, ``state.list_train_runs()`` /
-``state.train_run(run)``, the ``ray_tpu_torch train`` CLI, the dashboard train
-tab, and the ``ray_tpu_torch_train_*`` Prometheus series below.
+Surfaces: ``ray_tpu_torch.train_timeline(run)`` and the
+``ray_tpu_torch_train_*`` Prometheus series below (the reference's state
+API, CLI and dashboard views of it come with the port's cluster tooling).
 """
 
 from __future__ import annotations

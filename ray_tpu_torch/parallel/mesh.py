@@ -235,6 +235,33 @@ def create_mesh(
     return Mesh(sizes, names, rank_device())
 
 
+def pod_chip_count(pod_type: str) -> int:
+    """Total chips in a pod slice, e.g. v5litepod-64 -> 64 (a copy of
+    ``ray_tpu/_private/accelerators/tpu.py:63``); 0 when the name has no
+    count."""
+    try:
+        return int(pod_type.rsplit("-", 1)[1])
+    except (IndexError, ValueError):
+        return 0
+
+
+def mesh_from_pod_type(pod_type: str, config: Optional[MeshConfig] = None) -> Mesh:
+    """Mesh for a full pod slice, e.g. ``v5litepod-64`` -> a 64-rank mesh
+    (``data=-1`` unless ``config`` says otherwise). Checks that the ranks of
+    the initialized process group actually form the named slice."""
+    want = pod_chip_count(pod_type)
+    world = dist.get_world_size() if dist.is_initialized() else 0
+    if want and world != want:
+        raise ValueError(
+            f"pod type {pod_type} has {want} chips but the process group has {world} "
+            f"ranks. Every rank must join the group first: use ScalingConfig("
+            f"use_torch_distributed=True) in DataParallelTrainer, or call "
+            f"ray_tpu_torch.parallel.distributed.initialize(coord, n_procs, rank) "
+            f"directly; afterwards the group's ranks are the global set."
+        )
+    return create_mesh(config or MeshConfig(data=-1))
+
+
 def local_device_count() -> int:
     """CUDA devices visible to this process."""
     return torch.cuda.device_count()

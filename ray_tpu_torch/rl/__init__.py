@@ -10,9 +10,9 @@ on ``device`` (default ``"cuda"``; raises without a card). ``train()``,
 JAX algorithm's ``get_state()["params"]`` loads into the port's) as there.
 Envs, connectors and replay are numpy. Remote env runners
 (``num_env_runners > 0``) are CPU actors on the port's runtime, elastic as
-the reference's (``EnvRunnerGroup.restore``). Not in the port yet: the
-multi-process learner group and a learner over more than one device;
-asking for them raises ``NotImplementedError``.
+the reference's (``EnvRunnerGroup.restore``). IMPALA and APPO over several
+learner devices or learner workers run one learner actor per device
+(``rl.learner_group.SPMDLearnerGroup``), joined in one torch process group.
 """
 
 from ray_tpu_torch.rl.appo import APPO, APPOConfig
@@ -67,3 +67,8 @@ __all__ = [
     "FrameStack",
     "ClipActions",
 ]
+
+from ray_tpu_torch._private import usage as _usage
+
+_usage.record_library_usage("rl")
+del _usage

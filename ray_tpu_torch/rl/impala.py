@@ -1,15 +1,19 @@
 """IMPALA: actor-learner RL with V-trace off-policy correction (port of
-``ray_tpu/rl/impala.py``, single device).
+``ray_tpu/rl/impala.py``).
 
 Parity: ``rllib/algorithms/impala/impala.py:1`` (V-trace from Espeholt et
-al. 2018). The reference's learner is one jitted SPMD program over a
-``data``-axis mesh, or a group of learner processes; the port's learner is
-one clipped Adam step on one device. ``num_learner_devices > 1`` (several
-devices driven from one process, where the port's mesh runs one rank per
-process) and ``num_learner_workers > 1`` (learner actors, a later slice)
-are not ported: both raise ``NotImplementedError``. Env runners may be
-remote (``num_env_runners > 0``). The batch keeps the reference's lane mask
-(padded env lanes weigh nothing in the loss).
+al. 2018). With one learner the update is one clipped Adam step on the
+algorithm's device. The reference spreads the learner over
+``num_learner_devices`` devices of one jitted program, or over
+``num_learner_workers`` processes of one mesh; the port runs one rank per
+device, so either setting (their product is the rank count) builds an
+``SPMDLearnerGroup`` (``rl/learner_group.py``): learner actors on the
+port's runtime (``ray_tpu_torch.init()`` first) joined in one process group,
+each on one shard of the env axis (the reference's
+``impala_batch_shardings``), gradients all-reduced before the step. Env
+runners may be remote (``num_env_runners > 0``). The batch keeps the
+reference's lane mask: env lanes padded up to a multiple of the rank count
+weigh nothing in the loss.
 """
 
 from __future__ import annotations
@@ -129,6 +133,16 @@ def build_impala_update(cfg_vals: Dict[str, Any], optimizer: Adam):
     return _build_update(impala_loss, cfg_vals, optimizer)
 
 
+def resolve_loss(name: str):
+    """Learner losses by name: ``loss(params, batch, cfg_vals) -> (loss,
+    metrics)``, a masked mean over the batch's lanes."""
+    if name == "appo":
+        from ray_tpu_torch.rl.appo import appo_loss
+
+        return appo_loss
+    return impala_loss
+
+
 def resolve_update_builder(name: str):
     """Update builders by name, as the reference's learner workers take them."""
     if name == "appo":
@@ -149,13 +163,6 @@ class IMPALA(Algorithm):
         return {}
 
     def __init__(self, config: IMPALAConfig, device="cuda"):
-        if int(config.num_learner_devices) > 1:
-            raise NotImplementedError(
-                "num_learner_devices > 1 (several devices in one learner process, where the "
-                "port's mesh runs one rank per process) is not ported; use one learner device")
-        if int(config.num_learner_workers) > 1:
-            raise NotImplementedError(
-                "num_learner_workers > 1 (a group of learner actors) is a later slice of the port")
         super().__init__(config, device)
         spec = make_env(config.env).spec
         obs_dim = resolve_obs_dim(config, spec)
@@ -180,8 +187,33 @@ class IMPALA(Algorithm):
             "entropy_coeff": config.entropy_coeff,
             **self._extra_cfg_vals(config),
         }
-        self._update = resolve_update_builder(self._update_builder_name())(
-            self._cfg_vals, self.optimizer)
+        self._group = None
+        ranks = max(1, int(config.num_learner_workers)) * max(1, int(config.num_learner_devices))
+        if ranks > 1:
+            # one learner rank per device, each an actor of the runtime
+            from ray_tpu_torch.rl.learner_group import SPMDLearnerGroup
+
+            self._group = SPMDLearnerGroup(
+                num_workers=ranks,
+                builder_config={
+                    "cfg_vals": dict(self._cfg_vals),
+                    "update_builder": self._update_builder_name(),
+                    "obs_dim": obs_dim,
+                    "num_actions": spec.num_actions,
+                    "hidden": config.hidden,
+                    "lr": config.lr,
+                    "grad_clip": config.grad_clip,
+                    "seed": config.seed,
+                    "init_params": to_numpy(self.params),
+                    "device": self.device.type,
+                },
+                runtime_env=config.learner_runtime_env,
+                num_cpus_per_worker=config.num_cpus_per_learner,
+            )
+        else:
+            self._update = resolve_update_builder(self._update_builder_name())(
+                self._cfg_vals, self.optimizer)
+        self._total_learner_devices = ranks
         self._recent_returns: List[float] = []
         self._timesteps = 0
 
@@ -200,14 +232,26 @@ class IMPALA(Algorithm):
             self._recent_returns.extend(r["episode_returns"].tolist())
         self._recent_returns = self._recent_returns[-100:]
         T, N = batch["actions"].shape
-        # one learner device: no lane is padded
+        # pad N to a multiple of the learner ranks so shards are equal; a
+        # mask keeps the padded lanes out of the loss
+        pad = (-N) % self._total_learner_devices
         batch["mask"] = np.ones(N, np.float32)
+        if pad:
+            for k, v in batch.items():
+                env_axis = 0 if k in ("last_values", "mask") else 1
+                widths = [(0, 0)] * v.ndim
+                widths[env_axis] = (0, pad)
+                batch[k] = np.pad(v, widths)
         batch = {
             k: v.astype(np.float32) if v.dtype == bool else v for k, v in batch.items()
         }
-        self.params, self.opt_state, metrics = self._update(
-            self.params, self.opt_state, self._to_device(batch)
-        )
+        if self._group is not None:
+            metrics = self._group.update(batch)
+            self.params = load_params(self._group.cached_params(), self.device)
+        else:
+            self.params, self.opt_state, metrics = self._update(
+                self.params, self.opt_state, self._to_device(batch)
+            )
         self._timesteps += T * N
         mean_ret = (
             float(np.mean(self._recent_returns)) if self._recent_returns else 0.0
@@ -230,6 +274,10 @@ class IMPALA(Algorithm):
     def set_state(self, state):
         self.params = load_params(state["params"], self.device)
         self._timesteps = state.get("timesteps", 0)
+        if self._group is not None:
+            self._group.set_params(state["params"])
 
     def stop(self):
         self.runners.stop()
+        if self._group is not None:
+            self._group.stop()

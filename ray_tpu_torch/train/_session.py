@@ -1,0 +1,425 @@
+"""In-worker training session (port of ``ray_tpu/train/_session.py``).
+
+Parity: ``_TrainSession`` (``python/ray/train/_internal/session.py:111``) with
+``report`` (``:667``) and ``get_checkpoint`` (``:754``). Reports flow to the
+driver through a named collector actor instead of the reference's in-process
+queue+thread (workers here are separate processes). Each ``report`` closes
+one step record of the port's step plane (``_private/stepplane.py``) on its
+rank; the record rides the next report to the executor.
+"""
+
+from __future__ import annotations
+
+import os
+import shutil
+import threading
+import time
+from dataclasses import dataclass
+from typing import Any, Dict, Optional
+
+from ray_tpu_torch.train import checkpointing
+from ray_tpu_torch.train._checkpoint import Checkpoint
+
+_session_local = threading.local()
+
+
+def _manifest_step(path: str):
+    """Step recorded in a restored checkpoint's manifest (from_uri cache
+    slots keep their MANIFEST.json precisely so resume can continue the
+    numbering)."""
+    import json
+
+    from ray_tpu_torch._private.external_storage import MANIFEST_FILE
+
+    try:
+        with open(os.path.join(path, MANIFEST_FILE)) as fh:
+            step = json.load(fh).get("step")
+        return int(step) if step is not None else None
+    except (OSError, ValueError, TypeError):
+        return None
+
+
+import re as _re
+
+_SHARD_RE = _re.compile(r"^shard-(\d{5})-of-(\d{5})$")
+
+
+def _shard_dirs(step_dir: str):
+    """(name, rank, world) of every shard-XXXXX-of-YYYYY subdir of a
+    step dir."""
+    out = []
+    try:
+        names = os.listdir(step_dir)
+    except OSError:
+        return out
+    for name in names:
+        m = _SHARD_RE.match(name)
+        if m and os.path.isdir(os.path.join(step_dir, name)):
+            out.append((name, int(m.group(1)), int(m.group(2))))
+    return out
+
+
+def _pick_shard(step_dir: str, rank: int, world_size: int) -> Optional[str]:
+    """The shard subdirectory this rank should restore from, or None to
+    use the step dir itself. Exact (rank, world) match first. Across a
+    world-size CHANGE, a cross-world shard is only safe when it carries
+    the FULL state — the rank-0-gather pattern, recognizable as a step
+    dir whose sole shard is rank 0's. Anything else (a truly partitioned
+    layout at another world) returns the step dir: a different world's
+    per-rank slice is the wrong rows, and the elastic loader
+    (train.load_elastic) is the path that can re-shard it correctly."""
+    exact = os.path.join(
+        step_dir, checkpointing.shard_dir_name(rank, world_size)
+    )
+    if world_size > 1 and os.path.isdir(exact):
+        return exact
+    shards = _shard_dirs(step_dir)
+    if len(shards) == 1 and shards[0][1] == 0:
+        return os.path.join(step_dir, shards[0][0])
+    return None
+
+
+def _clear_stale_layouts(step_dir: str, world_size: int) -> None:
+    """Remove entries of a step dir that belong to a DIFFERENT world-size
+    layout: shard dirs whose ``-of-NNNNN`` suffix isn't the current world,
+    and (when the current world is sharded) leftover flat root residue
+    from a world-of-one attempt. The keep/delete decision is made from
+    each entry's NAME alone, in one pass — concurrent ranks snapshot the
+    same step simultaneously, and a peer's current-world shard dir
+    appearing between two listings must never be judged by a stale
+    snapshot (name-based judgment is time-independent)."""
+    try:
+        names = os.listdir(step_dir)
+    except OSError:
+        return
+    for name in names:
+        m = _SHARD_RE.match(name)
+        if m is not None:
+            stale = int(m.group(2)) != world_size  # other-world shard
+        else:
+            # non-shard root entry: legit only in a flat (world-1) layout
+            stale = world_size > 1
+        if not stale:
+            continue
+        p = os.path.join(step_dir, name)
+        if os.path.isdir(p):
+            shutil.rmtree(p, ignore_errors=True)
+        else:
+            try:
+                os.unlink(p)
+            except OSError:
+                pass
+
+
+@dataclass
+class TrainContext:
+    world_rank: int = 0
+    world_size: int = 1
+    local_rank: int = 0
+    node_rank: int = 0
+    experiment_name: str = ""
+    trial_dir: str = ""
+
+    def get_world_rank(self) -> int:
+        return self.world_rank
+
+    def get_world_size(self) -> int:
+        return self.world_size
+
+    def get_local_rank(self) -> int:
+        return self.local_rank
+
+    def get_trial_dir(self) -> str:
+        return self.trial_dir
+
+
+def _preempt_shield():
+    """The active runtime's preemption-shield toggle, or a no-op when the
+    session runs somewhere without one (driver-local trainers, tests)."""
+    try:
+        from ray_tpu_torch._private.worker import get_runtime
+
+        fn = getattr(get_runtime(), "protect_from_preemption", None)
+    except Exception:
+        fn = None
+    return fn if fn is not None else (lambda delta: None)
+
+
+class _Session:
+    def __init__(
+        self,
+        context: TrainContext,
+        collector,
+        latest_checkpoint: Optional[Checkpoint],
+        run_name: str = "train",
+    ):
+        self.context = context
+        self.collector = collector  # ActorHandle of _ReportCollector (or None)
+        self.run_name = run_name
+        # step plane: per-step stage decomposition between report boundaries
+        # (None when train_obs_enabled is off — zero hot-path cost)
+        from ray_tpu_torch._private import stepplane
+
+        self._step_timer = stepplane.make_timer(
+            run_name, context.world_rank, context.world_size
+        )
+        # resume continues the step numbering: a restarted attempt must not
+        # re-emit checkpoint_000001 over an already-committed step 1 (the
+        # overwrite would invalidate its manifest digests)
+        self.iteration = 0
+        if latest_checkpoint is not None:
+            step = checkpointing.parse_step(
+                os.path.basename(latest_checkpoint.path.rstrip("/"))
+            )
+            if step is None:
+                step = _manifest_step(latest_checkpoint.path)
+            if step is not None:
+                self.iteration = step
+        # the step-dir-level restore root (pre shard-pick): the elastic
+        # N→M loader needs ALL old shards' indexes, not one rank's view
+        self._restore_root = (
+            latest_checkpoint.path if latest_checkpoint is not None else None
+        )
+        # sharded resume: a multi-rank committed checkpoint is a step dir
+        # of shard-{rank}-of-{world} subdirs; each rank sees its exact
+        # (rank, world) shard, or the sole rank-0 shard of a gather-
+        # pattern checkpoint (full state, safe at any world). Any other
+        # world-size mismatch keeps the whole step dir — a different
+        # world's per-rank slice would be the wrong rows, and
+        # train.load_elastic() is the path that re-shards it correctly.
+        if latest_checkpoint is not None:
+            shard = _pick_shard(
+                latest_checkpoint.path, context.world_rank, context.world_size
+            )
+            if shard is not None:
+                latest_checkpoint = Checkpoint(shard)
+        self.latest_checkpoint = latest_checkpoint
+
+    def report(self, metrics: Dict[str, Any], checkpoint: Optional[Checkpoint] = None):
+        if checkpoint is None:
+            return self._report(metrics, None)
+        # preemption shield: the window from snapshot start to the shard's
+        # arrival at the head barrier must not be a preemption/OOM-kill
+        # target — victim selection skips shielded workers, so an
+        # arbitration kill never tears a shard racing toward its commit
+        shield = _preempt_shield()
+        shield(+1)
+        try:
+            return self._report(metrics, checkpoint)
+        finally:
+            shield(-1)
+
+    def _report(self, metrics: Dict[str, Any], checkpoint: Optional[Checkpoint]):
+        self.iteration += 1
+        timer = self._step_timer
+        if timer is not None:
+            # the loop half of the step (data_wait/h2d/compile/compute)
+            # ends here; everything below is the report half
+            timer.mark_pre_report()
+        ckpt_path = None
+        if checkpoint is not None:
+            # checkpoint plane save path: EVERY rank snapshots its shard
+            # locally (O(local-copy) — this is all train.report blocks on)
+            # and reports it; the head-side manager barriers the shards,
+            # then uploads + commits in the background (parity upgrade over
+            # the reference's rank-0-only blocking upload)
+            from ray_tpu_torch._private.profiling import profile
+
+            step_dir = os.path.join(
+                self.context.trial_dir, checkpointing.step_dir_name(self.iteration)
+            )
+            shard = checkpointing.shard_dir_name(
+                self.context.world_rank, self.context.world_size
+            )
+            dest = os.path.join(step_dir, shard) if shard else step_dir
+            t0 = time.monotonic()
+            with profile(
+                "checkpoint_save",
+                {"step": self.iteration, "rank": self.context.world_rank},
+            ):
+                from ray_tpu_torch._private import external_storage as _xstorage
+
+                # a committed step dir is NEVER mutated in place (an
+                # explicit resume below an old run's latest step can land
+                # here): demote it by unlinking just its markers — each
+                # write is atomic and idempotent, so concurrent ranks can
+                # all demote without wiping each other's fresh shards (a
+                # full delete_prefix here raced exactly that way)
+                for mark in (_xstorage.COMMIT_FILE, _xstorage.MANIFEST_FILE):
+                    try:
+                        os.unlink(os.path.join(step_dir, mark))
+                    except OSError:
+                        pass
+                # an elastic resize can leave THIS step dir holding a dead
+                # attempt's shards from another world size (or stale flat
+                # files when the world grew past 1): the commit manifests
+                # whatever is on disk, so a mixed-layout dir would become
+                # a trusted checkpoint that restores mixed-generation
+                # state. Every rank clears the stale layout; ranks of one
+                # generation write only current-world entries, so the
+                # deletions never race a live shard.
+                _clear_stale_layouts(step_dir, self.context.world_size)
+                if os.path.abspath(checkpoint.path) != dest:
+                    shutil.copytree(checkpoint.path, dest, dirs_exist_ok=True)
+                # a RESTORED checkpoint carries its old markers (and the
+                # restore cache's .complete): drop them from the snapshot,
+                # or the new step dir looks committed before it is — and a
+                # crash before the real commit would resume from a torn dir
+                for mark in (_xstorage.COMMIT_FILE, _xstorage.MANIFEST_FILE, ".complete"):
+                    try:
+                        os.unlink(os.path.join(dest, mark))
+                    except OSError:
+                        pass
+            elapsed = time.monotonic() - t0
+            checkpointing.observe_save_seconds(elapsed)
+            if timer is not None:
+                # the blocking (local-snapshot) portion only — the upload +
+                # commit ride the checkpoint plane's background queue
+                timer.note_checkpoint_stall(elapsed)
+            ckpt_path = dest
+        if self.collector is not None:
+            import ray_tpu_torch
+
+            # the PREVIOUS step's finalized record rides this report rpc
+            # (zero extra messages on the step hot path); the session's
+            # last record drains via telemetry when the timer deactivates
+            step_rec = timer.pop_pending_record() if timer is not None else None
+            ray_tpu_torch.get(
+                self.collector.report.remote(
+                    self.context.world_rank,
+                    self.iteration,
+                    metrics,
+                    ckpt_path,
+                    step_rec,
+                )
+            )
+        if timer is not None:
+            # close the step at the report boundary
+            from ray_tpu_torch.util import tracing as _tracing
+
+            timer.finalize_step(
+                self.iteration, trace_id=_tracing.current_trace_id()
+            )
+
+    # -- elastic state ------------------------------------------------------
+
+    def load_elastic(self, arrays=None, *, full: bool = False):
+        """This rank's re-sharded slice of the latest elastic checkpoint
+        (or the fully assembled arrays with ``full=True``), plus the
+        saver's extra metadata — or None when there is nothing to resume
+        from. Works across world-size changes: the slice is computed from
+        the CURRENT (rank, world_size) over whatever shard layout was
+        committed."""
+        from ray_tpu_torch.train import elastic
+
+        root = self._restore_root
+        if root is None:
+            return None
+        if full:
+            return elastic.load_elastic_full(root, arrays=arrays)
+        return elastic.load_elastic_state(
+            root,
+            rank=self.context.world_rank,
+            world_size=self.context.world_size,
+            arrays=arrays,
+        )
+
+    def report_elastic(self, metrics: Dict[str, Any], arrays, extra=None):
+        """Snapshot ``arrays`` as this rank's elastic shard and report it.
+        The shard carries only this rank's balanced row partition, so a
+        full-world save costs ~1/world of the state per rank and any
+        future world size can restore it."""
+        import tempfile
+
+        from ray_tpu_torch.train import elastic
+
+        d = tempfile.mkdtemp(prefix="elastic_shard_")
+        try:
+            elastic.save_elastic_shard(
+                d,
+                arrays,
+                rank=self.context.world_rank,
+                world_size=self.context.world_size,
+                extra=extra,
+            )
+            self.report(metrics, Checkpoint(d))
+        finally:
+            # report() copied the shard into the step dir (or raised): the
+            # staging dir must not leak one
+            # shard-sized /tmp directory per rank per step
+            shutil.rmtree(d, ignore_errors=True)
+
+
+_session_fallback: Optional[_Session] = None
+
+
+def _set_session(session: Optional[_Session]):
+    global _session_fallback
+    _session_local.session = session
+    # process-wide fallback: the SIGTERM preemption drain runs hooks on a
+    # side thread, where the thread-local is unset — a worker runs one
+    # train session at a time, so the fallback is unambiguous there
+    _session_fallback = session
+    # step plane: make this session's timer the process's active step so
+    # the seams that feed it (the checkpoint stall here) publish into it
+    from ray_tpu_torch._private import stepplane
+
+    stepplane.activate(session._step_timer if session is not None else None)
+
+
+def _get_session() -> Optional[_Session]:
+    session = getattr(_session_local, "session", None)
+    return session if session is not None else _session_fallback
+
+
+def report(metrics: Dict[str, Any], *, checkpoint: Optional[Checkpoint] = None) -> None:
+    """Report metrics (and optionally a checkpoint) from the train loop.
+    Parity: ``ray.train.report``."""
+    s = _get_session()
+    if s is None:
+        raise RuntimeError("train.report() called outside a training session")
+    s.report(metrics, checkpoint)
+
+
+def get_context() -> TrainContext:
+    s = _get_session()
+    if s is None:
+        return TrainContext()
+    return s.context
+
+
+def get_checkpoint() -> Optional[Checkpoint]:
+    s = _get_session()
+    return s.latest_checkpoint if s else None
+
+
+def get_dataset_shard(name: str = "train"):
+    """Parity: ``ray.train.get_dataset_shard``. The port has no data library
+    yet: the trainer's ``datasets=`` and this per-rank shard come with the
+    data slice (``ray_tpu/data``), so calling it raises."""
+    raise NotImplementedError(
+        f"train.get_dataset_shard({name!r}) needs the data library, which the port "
+        "does not have yet (the data slice); feed the loop from its config instead"
+    )
+
+
+def load_elastic(arrays=None, *, full: bool = False):
+    """Restore this rank's slice of the latest elastic checkpoint —
+    re-sharded on the fly when the world size changed since the save
+    (N→M). ``full=True`` assembles the complete arrays instead (what a
+    replicated data-parallel loop wants). Returns ``(arrays, extra)`` or
+    None when there is no checkpoint to resume from."""
+    s = _get_session()
+    if s is None:
+        raise RuntimeError("train.load_elastic() called outside a training session")
+    return s.load_elastic(arrays, full=full)
+
+
+def report_elastic(metrics: Dict[str, Any], arrays, *, extra=None) -> None:
+    """Report metrics plus an elastic checkpoint of ``arrays`` (this
+    rank's balanced row partition of each). The committed result can be
+    restored at ANY world size via :func:`load_elastic`."""
+    s = _get_session()
+    if s is None:
+        raise RuntimeError("train.report_elastic() called outside a training session")
+    s.report_elastic(metrics, arrays, extra=extra)

@@ -495,16 +495,17 @@ def test_evaluate_uses_trained_connector_state_without_mutating_it():
 
 
 def test_remote_runners_and_learner_groups_raise():
-    # remote env runners are actors of the port's runtime (their tests are
-    # tests/test_torch_rl_remote.py): without a started runtime they raise
+    # remote env runners and learner groups are actors of the port's runtime
+    # (their tests are tests/test_torch_rl_remote.py and
+    # tests/test_torch_learner_group.py): without a started runtime they raise
     import ray_tpu_torch
 
     assert not ray_tpu_torch.is_initialized()
     with pytest.raises(RuntimeError, match=r"init\(\) has not been called"):
         PR.PPOConfig().env_runners(num_env_runners=2).build(device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(RuntimeError, match=r"init\(\) has not been called"):
         PR.IMPALAConfig().learners(num_learner_devices=2).build(device="cpu")
-    with pytest.raises(NotImplementedError, match="learner actors"):
+    with pytest.raises(RuntimeError, match=r"init\(\) has not been called"):
         PR.APPOConfig().learners(num_learner_workers=2).build(device="cpu")
 
 
