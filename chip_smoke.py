@@ -63,6 +63,13 @@ the step's logits meet ``_logit_rule``); a ``num_gpus=1`` task waits
 while the actor holds the card and runs after the kill; PPO samples from
 two remote CPU runner actors and heals after losing one; two CPU actors
 meet through the runtime's KV and all-reduce over gloo.
+Phase ``serve_gpu``: the serve library. ``serve.run(llm_deployment(...))``
+puts the same Llama-2-7B in a ``num_gpus=1`` replica; the three prompts go
+through a streaming handle and the 700-token prompt alone over HTTP
+through the proxy (on an ephemeral port); the replica's own process counts
+32 flash launches per prefill and 32 paged launches per decode step; the
+solo tokens are held to the driver's as in runtime_gpu; after
+``serve.delete`` a pending ``num_gpus=1`` task gets the card.
 Every phase prints one JSON object; any failure or missed tolerance raises
 (non-zero exit). The last two lines are the per-kernel summary and the
 result line read by automation:
@@ -2442,6 +2449,254 @@ def phase_runtime_gpu(smi, ecfg, driver_serve: dict, rl_row: dict) -> dict:
     return counts
 
 
+class _LlamaServer:
+    """Phase serve_gpu's deployment class: ``LLMServer`` itself (the class
+    ``llm_deployment`` binds, built from the same arguments), plus what the
+    phase reads in the replica's own process: the kernels' launch counts,
+    the weights' digest, the TTFT of the last request the engine took, and
+    each step's logits for the divergence check. Made a subclass of
+    ``LLMServer`` when the phase runs (``_server_class``)."""
+
+    def __init__(self, *args, **kwargs):
+        t0 = time.perf_counter()
+        super().__init__(*args, **kwargs)
+        submit = self.engine.submit
+
+        def recording_submit(*a, **k):
+            self._last_stream = submit(*a, **k)
+            return self._last_stream
+
+        self.engine.submit = recording_submit
+        self._last_stream = None
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        self.build_s = time.perf_counter() - t0
+
+    def info(self) -> dict:
+        import os
+
+        import ray_tpu_torch
+
+        return dict(pid=os.getpid(), cuda_visible_devices=os.environ.get("CUDA_VISIBLE_DEVICES"),
+                    device_count=torch.cuda.device_count(),
+                    accelerator_ids=ray_tpu_torch.get_runtime_context().get_accelerator_ids(),
+                    checksum=_params_checksum(self.engine.params), build_s=self.build_s,
+                    jax_modules=sorted(m for m in sys.modules
+                                       if m.split(".")[0] in ("jax", "jaxlib", "ray_tpu")))
+
+    def reset_launches(self) -> None:
+        from ray_tpu_torch.kernels.flash_attention import flash_attention
+        from ray_tpu_torch.kernels.paged_attention import paged_attention
+
+        flash_attention.launches = paged_attention.launches = 0
+
+    def launches(self) -> dict:
+        from ray_tpu_torch.kernels.flash_attention import flash_attention
+        from ray_tpu_torch.kernels.paged_attention import paged_attention
+
+        return {k.__name__: k.launches for k in (flash_attention, paged_attention)}
+
+    def last_ttft_ms(self) -> float:
+        return self._last_stream.ttft_s * 1e3
+
+    def step_logits(self, prompt, tokens):
+        return _step_logits(self.engine.params, self.engine.model_cfg, prompt, tokens)
+
+
+def _server_class():
+    from ray_tpu_torch.serve.llm.deployment import LLMServer
+
+    return type("LlamaServer", (_LlamaServer, LLMServer), {"__module__": __name__})
+
+
+def _stream_requests(handle, prompts, max_new) -> dict:
+    """The prompts through a streaming handle at once, one thread each:
+    tokens, the wall time of the whole batch and each request's first-item
+    time at the driver."""
+    import threading
+
+    outs, firsts, errors = [None] * len(prompts), [None] * len(prompts), []
+    t0 = time.perf_counter()
+
+    def run(i):
+        try:
+            toks = []
+            for tok in handle.options(stream=True).generate.remote(prompts[i], max_new_tokens=max_new):
+                if not toks:
+                    firsts[i] = (time.perf_counter() - t0) * 1e3
+                toks.append(tok)
+            outs[i] = toks
+        except Exception as e:  # noqa: BLE001 — raised below with the others
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(len(prompts))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    if errors or any(o is None for o in outs):
+        raise AssertionError(f"serve_gpu: streams failed: {errors or 'a stream hung'}")
+    return dict(tokens=outs, wall_s=wall, tokens_per_s=sum(len(o) for o in outs) / wall,
+                first_item_ms=firsts)
+
+
+def _http_post(address, path, payload) -> tuple:
+    import urllib.request
+
+    host, port = address
+    req = urllib.request.Request(f"http://{host}:{port}{path}", data=json.dumps(payload).encode(),
+                                 headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=600) as r:
+        body = json.loads(r.read())
+    return body["result"], (time.perf_counter() - t0) * 1e3
+
+
+def phase_serve_gpu(smi, ecfg, driver_serve: dict, model_cfg=None, device: str = "cuda") -> dict:
+    """The serve library on the card: ``serve.run(llm_deployment(...))`` puts
+    Llama-2-7B (phase serve's weight seed) in a ``num_gpus=1`` replica; phase
+    runtime_gpu's three prompts go through a streaming handle and the
+    700-token prompt alone over HTTP through the proxy; in the replica's own
+    process the wrappers count 32 flash launches per prefill and 32 paged
+    launches per decode step; the solo tokens equal the driver's (or the
+    divergent step meets ``_logit_rule``); after ``serve.delete`` a pending
+    ``num_gpus=1`` task gets the card. Checks are gathered and raised at the
+    end, after the row is printed."""
+    import dataclasses
+    import os
+
+    import ray_tpu_torch
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.models.transformer import LLAMA2_7B
+    from ray_tpu_torch.serve._proxy import _PROXY_NAME, HTTPProxy
+    from ray_tpu_torch.serve.api import Deployment
+    from ray_tpu_torch.serve.llm import llm_deployment
+    from ray_tpu_torch.util.metrics import prometheus_text
+
+    cfg = model_cfg or LLAMA2_7B
+    row: dict = dict(card=smi)
+    failed: list = []
+    t_phase = t0 = time.perf_counter()
+    ray_tpu_torch.init()
+    row["init_ms"] = (time.perf_counter() - t0) * 1e3
+    try:
+        # the proxy on an ephemeral port, made before serve.run adds the route
+        proxy = HTTPProxy.options(name=_PROXY_NAME, num_cpus=0).remote(0)
+        address = tuple(ray_tpu_torch.get(proxy.address.remote(), timeout=120))
+        # llm_deployment's application, its class swapped for the probe with
+        # every option and argument kept
+        # (weights from seed 0, phase serve's)
+        app = llm_deployment(cfg, dataclasses.asdict(ecfg), deployment_name="llama2-7b",
+                             device=device, ray_actor_options={"num_gpus": 1})
+        dep = app.deployment
+        app = Deployment(_server_class(), **{k: getattr(dep, k) for k in Deployment._OPTION_KEYS}
+                         ).bind(*app.args, **app.kwargs)
+        t0 = time.perf_counter()
+        handle = serve.run(app, name="llm", route_prefix="/llm")
+        row["replica_start_s"] = time.perf_counter() - t0
+        info = handle.info.remote().result(timeout_s=120)
+        row["replica"] = info
+        if info["cuda_visible_devices"] != "0" or info["device_count"] != 1:
+            failed.append(f"the replica sees CUDA_VISIBLE_DEVICES={info['cuda_visible_devices']!r} "
+                          f"and {info['device_count']} devices")
+        if info["pid"] == os.getpid() or info["jax_modules"]:
+            failed.append(f"the replica runs in the driver or imported {info['jax_modules']}")
+        if info["checksum"] != driver_serve["checksum"]:
+            failed.append("the replica's weights differ from phase serve's")
+
+        prompts = _runtime_prompts(cfg)
+        _stream_requests(handle, prompts, RUNTIME_NEW_TOKENS)  # warm-up, untimed
+        handle.reset_launches.remote().result(timeout_s=60)
+        together = _stream_requests(handle, prompts, RUNTIME_NEW_TOKENS)
+        counts = handle.launches.remote().result(timeout_s=60)
+        handle.reset_launches.remote().result(timeout_s=60)
+        solo = _stream_requests(handle, [prompts[1]], RUNTIME_NEW_TOKENS)
+        solo_counts = handle.launches.remote().result(timeout_s=60)
+        http_tokens, http_ms = _http_post(address, "/llm", {"prompt": prompts[1],
+                                                            "max_new_tokens": RUNTIME_NEW_TOKENS})
+        # the HTTP hop: a one-token request's round trip at the driver against
+        # the TTFT the replica's engine measured for it
+        hops = []
+        for _ in range(3):
+            _, rt_ms = _http_post(address, "/llm", {"prompt": prompts[1], "max_new_tokens": 1})
+            hops.append((rt_ms, handle.last_ttft_ms.remote().result(timeout_s=60)))
+        hop_ms = min(h[0] - h[1] for h in hops)
+        row["http_hop"] = dict(round_trip_ms=[h[0] for h in hops],
+                               ttft_in_replica_ms=[h[1] for h in hops], hop_ms=hop_ms,
+                               share_of_ttft=hop_ms / min(h[0] for h in hops))
+        n_layers = cfg.n_layers
+        steps = counts["paged_attention"] / n_layers
+        solo_steps = solo_counts["paged_attention"] / n_layers
+        row["serving"] = dict(
+            prompt_lengths=RUNTIME_PROMPT_LENGTHS, new_tokens=RUNTIME_NEW_TOKENS,
+            handle={k: v for k, v in together.items() if k != "tokens"},
+            handle_solo={k: v for k, v in solo.items() if k != "tokens"},
+            http_solo_ms=http_ms, launches=counts, solo_launches=solo_counts,
+            decode_steps=steps, solo_decode_steps=solo_steps,
+            driver_engine=dict(tokens_per_s=driver_serve["tokens_per_s"],
+                               ttft_ms=driver_serve["ttft_ms"],
+                               solo_wall_s=driver_serve["solo_wall_s"]))
+        if counts["flash_attention"] != len(prompts) * n_layers or steps != int(steps) \
+                or steps < RUNTIME_NEW_TOKENS - 1 or solo_counts["flash_attention"] != n_layers \
+                or solo_steps != RUNTIME_NEW_TOKENS - 1:
+            failed.append(f"launch counts {counts} / solo {solo_counts} are not {n_layers} per "
+                          f"prefill and {n_layers} per decode step")
+        if any(len(o) != RUNTIME_NEW_TOKENS for o in together["tokens"] + solo["tokens"]):
+            failed.append("a stream ended short")
+        got, want = solo["tokens"][0], driver_serve["solo_tokens"]
+        diverge = next((i for i, (x, y) in enumerate(zip(got, want)) if x != y), None)
+        row["solo"] = dict(equal=diverge is None, first_divergent_token=diverge,
+                           replica_tokens=got, driver_tokens=want,
+                           http_equal_stream=http_tokens == got,
+                           together_equal_solo=together["tokens"][1] == got)
+        if http_tokens != got:
+            failed.append("the HTTP request's tokens differ from the streamed solo request's")
+        if diverge is not None:
+            logits = handle.step_logits.remote(prompts[1], got).result(timeout_s=300)
+            try:
+                row["solo"]["divergent_step_rule"] = _logit_rule(
+                    "serve_gpu divergent step", logits[diverge][None],
+                    driver_serve["solo_step_logits"][diverge][None])
+            except AssertionError as e:
+                failed.append(str(e))
+        text = prometheus_text()
+        row["series"] = {
+            line.split(" ")[0]: float(line.split(" ")[1]) for line in text.splitlines()
+            if line.startswith(("ray_tpu_torch_llm_", "ray_tpu_torch_serve_ttft_ms"))
+            and "_bucket{" not in line and float(line.split(" ")[1]) != 0.0}
+        row["status_ttft"] = serve.status()["llm"]["llama2-7b"]["ttft"]
+        for prefix in ("ray_tpu_torch_llm_tokens_total", "ray_tpu_torch_llm_decode_step_ms",
+                       "ray_tpu_torch_serve_ttft_ms"):
+            if not any(k.startswith(prefix) for k in row["series"]):
+                failed.append(f"no non-zero {prefix} series")
+
+        # the handover: a GPU task waits while the replica holds the card and
+        # runs once serve.delete has drained and killed it
+        @ray_tpu_torch.remote(num_gpus=1)
+        def visible():
+            return os.environ.get("CUDA_VISIBLE_DEVICES")
+
+        pending = visible.remote()
+        ready, _ = ray_tpu_torch.wait([pending], num_returns=1, timeout=3.0)
+        t0 = time.perf_counter()
+        serve.delete("llm")
+        after = ray_tpu_torch.get(pending, timeout=300)
+        row["pending_gpu_task"] = dict(ready_while_held=bool(ready), after_delete=after,
+                                       ran_after_delete_s=time.perf_counter() - t0)
+        if ready or after != "0":
+            failed.append(f"the GPU task ran while the replica held the card ({bool(ready)}) or "
+                          f"saw CUDA_VISIBLE_DEVICES={after!r}")
+        serve.shutdown()
+    finally:
+        ray_tpu_torch.shutdown()
+        row["seconds"] = time.perf_counter() - t_phase
+        log("serve_gpu", **row)
+    if failed:
+        raise AssertionError("serve_gpu: " + "; ".join(failed))
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -2498,6 +2753,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     runtime_counts = phase_runtime_gpu(smi, ecfg, runtime_driver, rl_row)
+    serve_gpu_counts = phase_serve_gpu(smi, ecfg, runtime_driver)
     bwd_rows = phase_kernels_bwd()
     ring_counts, _ = phase_ring_schedule()
     phase_train_check()
@@ -2540,6 +2796,7 @@ def main() -> int:
                "spmd_mesh1": mesh1_counts["flash_attention"],
                "spmd_tensor2": tensor2_counts["flash_attention"],
                "runtime_gpu_actor": runtime_counts["flash_attention"],
+               "serve_gpu_replica": serve_gpu_counts["flash_attention"],
                "train_gpu_worker": lib_counts["train_gpu_worker"][0],
                "train_restart": lib_counts["train_restart"][0]}),
         entry("paged_attention", "ray_tpu_torch/csrc/paged_attention.cu", paged_rows[0],
@@ -2548,7 +2805,8 @@ def main() -> int:
                "dense_generate": dense_counts["paged_attention"],
                "rl": rl_counts["paged_attention"],
                "spmd_mesh1": mesh1_counts["paged_attention"],
-               "runtime_gpu_actor": runtime_counts["paged_attention"]}),
+               "runtime_gpu_actor": runtime_counts["paged_attention"],
+               "serve_gpu_replica": serve_gpu_counts["paged_attention"]}),
         entry("flash_attention_bwd", "ray_tpu_torch/csrc/flash_attention_bwd.cu", bwd_rows[0],
               train_counts["flash_attention_backward"],
               {"train": train_counts["flash_attention_backward"],

@@ -39,6 +39,7 @@ import os
 import sys
 import threading
 import time
+import weakref
 from typing import Dict, Optional
 
 # bounded per-process callsite interning: beyond the cap every new site
@@ -286,7 +287,11 @@ def collect_device_metrics() -> bool:
     # this process) folds into the ray_tpu_torch_kv_* gauges alongside the
     # allocator stats, so `ray_tpu_torch memory` shows KV occupancy next to HBM
     try:
-        for name, provider in list(_kv_providers.items()):
+        for name, ref in list(_kv_providers.items()):
+            provider = ref()
+            if provider is None:  # its engine is gone
+                _kv_providers.pop(name, None)
+                continue
             try:
                 record_kv_occupancy(provider())
             except Exception:
@@ -312,8 +317,13 @@ _kv_providers: Dict[str, object] = {}
 def register_kv_provider(deployment: str, provider) -> None:
     """Register a KV-stats source (an engine's ``kv_stats``) so periodic
     device sweeps refresh the ``ray_tpu_torch_kv_*`` gauges even when the
-    engine is idle."""
-    _kv_providers[str(deployment)] = provider
+    engine is idle. A bound method is held weakly: the registry must not
+    keep an engine, its weights and its KV pool alive."""
+    if hasattr(provider, "__self__"):
+        ref = weakref.WeakMethod(provider)
+    else:
+        ref = lambda: provider  # noqa: E731
+    _kv_providers[str(deployment)] = ref
 
 
 def _get_kv_gauges() -> Dict[str, object]:

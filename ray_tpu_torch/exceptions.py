@@ -11,6 +11,11 @@ class RayTpuError(Exception):
     """Base class for all framework errors."""
 
 
+_TASK_ERROR_FIELDS = frozenset(
+    ("function_name", "traceback_str", "cause", "task_id", "attempt", "node_id", "pid", "_inner")
+)
+
+
 class TaskError(RayTpuError):
     """A remote task raised an exception; carries the remote traceback plus
     its origin: task id, attempt number, node, and executing pid.
@@ -73,6 +78,14 @@ class TaskError(RayTpuError):
                         inner.traceback_str,
                         inner.cause,
                         *inner._provenance(),
+                    )
+                    # TaskError's message went through the cause class's
+                    # __init__ and reset its fields to their defaults: take
+                    # the cause's own (a shed's retry_after_s reaches the
+                    # proxy's Retry-After)
+                    self.__dict__.update(
+                        (k, v) for k, v in vars(inner.cause).items()
+                        if k not in _TASK_ERROR_FIELDS
                     )
 
                 def __str__(self):

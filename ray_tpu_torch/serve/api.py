@@ -1,0 +1,1160 @@
+"""Serve public API: deployments, applications, run/shutdown.
+
+Parity: ``python/ray/serve/api.py`` (``serve.run`` ``:535``) +
+``ServeController`` (``_private/controller.py:86``): a detached named
+controller actor owns the deployment table and reconciles replica actors
+(restart on death); ``.bind()`` builds composition graphs whose nested nodes
+become DeploymentHandles (``deployment_graph_build.py``).
+
+Resilience plane (this module is the control-plane half; ``handle.py`` /
+``_direct.py`` are the data plane):
+
+* **graceful drain** — every kill path (redeploy, autoscale-down,
+  ``delete``, ``shutdown``) marks replicas DRAINING (new dispatches
+  rejected, in-flight work incl. open streams/websockets finishes) and only
+  kills them once idle or past the deployment's
+  ``graceful_shutdown_timeout_s`` (parity: ``deployment_state.py``'s
+  graceful-stop + proxy draining);
+* **health states** — the reconcile loop drives per-deployment
+  HEALTHY / DEGRADED / UNHEALTHY off parallel health probes, emitting
+  DEPLOYMENT_UNHEALTHY / REPLICA_DIED cluster events;
+* **controller fault tolerance** — app specs, routes, and replica ids
+  persist to the GCS KV on every mutation; the controller is a detached,
+  infinitely-restartable actor whose fresh incarnation restores the tables
+  and RE-ADOPTS still-alive replicas instead of cold-starting the fleet
+  (parity: serve controller state in the GCS, ``kv_store.py``).
+"""
+
+from __future__ import annotations
+
+import logging
+import time
+from dataclasses import dataclass
+from typing import Any, Dict, List, Optional
+
+import cloudpickle
+
+import ray_tpu_torch
+from ray_tpu_torch.serve._replica import Replica
+from ray_tpu_torch.serve.handle import DeploymentHandle
+
+logger = logging.getLogger(__name__)
+
+_CONTROLLER_NAME = "SERVE_CONTROLLER"
+_KV_NS = "serve"
+_KV_APPS = b"apps"
+_KV_ROUTES = b"routes"
+_KV_REPLICAS = b"replicas"
+_KV_DRAINING = b"draining"
+
+# controller-side telemetry; lazy singletons (records are local dict
+# updates batched by the telemetry plane)
+_metrics: dict = {}
+
+
+def _controller_metrics() -> dict:
+    if not _metrics:
+        from ray_tpu_torch.util.metrics import Counter
+
+        _metrics["drained"] = Counter(
+            "ray_tpu_torch_serve_drained_total",
+            "replicas gracefully drained before kill",
+            tag_keys=("deployment",),
+        )
+        _metrics["deaths"] = Counter(
+            "ray_tpu_torch_serve_replica_deaths_total",
+            "serving replicas that died outside a drain",
+            tag_keys=("deployment",),
+        )
+    return _metrics
+
+
+def _inc(name: str, deployment: str) -> None:
+    try:
+        _controller_metrics()[name].inc(tags={"deployment": deployment})
+    except Exception:
+        pass
+
+
+def _event(type: str, message: str, severity: str = "INFO", **extra) -> None:
+    try:
+        from ray_tpu_torch._private.telemetry import record_cluster_event
+
+        record_cluster_event(type, message, severity=severity, source="SERVE", **extra)
+    except Exception:
+        pass
+
+
+@dataclass
+class Application:
+    """A bound deployment graph node."""
+
+    deployment: "Deployment"
+    args: tuple
+    kwargs: dict
+
+
+class Deployment:
+    """One deployment's declaration.
+
+    Resilience knobs (see DESIGN_MAP "Serve resilience"):
+
+    * ``graceful_shutdown_timeout_s`` — on redeploy / autoscale-down /
+      delete / shutdown a replica drains (rejects new dispatches, finishes
+      in-flight work including open streams and websocket sessions) for up
+      to this long before being killed. Default 20s.
+    * ``request_retries`` — failover budget per request: calls the
+      scheduler proves never started executing on a dead/draining replica
+      are transparently retried on another replica up to this many times
+      (torn work instead raises a typed ``ReplicaDiedError``). Default 3.
+    * ``request_timeout_s`` — per-request budget the HTTP proxy applies to
+      dispatches for this deployment (504 on expiry instead of an unbounded
+      hang). Default 120s.
+    * ``shed_queue_factor`` / ``shed_retry_after_s`` — admission control:
+      once queued work exceeds ``replicas x max_ongoing_requests x
+      shed_queue_factor`` new requests are shed with
+      ``DeploymentOverloadedError`` (HTTP: fast 503 + ``Retry-After:
+      shed_retry_after_s``) instead of queueing into a guaranteed timeout;
+      a half-open probe per window re-tests freed capacity. For autoscaled
+      deployments capacity is computed against ``max_replicas`` (queued
+      work is the scale-up signal — shedding it would starve the
+      autoscaler). Default factor 6.0.
+    * ``health_check_period_s`` — reconcile-loop probe period for this
+      deployment (replica health + queue-depth sampling).
+    """
+
+    def __init__(self, target, *, name=None, num_replicas=1, max_ongoing_requests=8,
+                 ray_actor_options=None, health_check_period_s=5.0,
+                 autoscaling_config=None, user_config=None,
+                 graceful_shutdown_timeout_s=20.0, request_timeout_s=120.0,
+                 request_retries=3, shed_queue_factor=6.0,
+                 shed_retry_after_s=1.0):
+        self._target = target
+        self.name = name or getattr(target, "__name__", "deployment")
+        self.num_replicas = num_replicas
+        self.max_ongoing_requests = max_ongoing_requests
+        self.ray_actor_options = ray_actor_options or {}
+        self.health_check_period_s = health_check_period_s
+        # {"min_replicas", "max_replicas", "target_ongoing_requests"}
+        # (parity: serve autoscaling_policy.py / autoscaling_state.py)
+        self.autoscaling_config = dict(autoscaling_config or {}) or None
+        # opaque config delivered to the callable's reconfigure() — updating
+        # ONLY this on redeploy is a lightweight update (no replica restart)
+        self.user_config = user_config
+        self.graceful_shutdown_timeout_s = graceful_shutdown_timeout_s
+        self.request_timeout_s = request_timeout_s
+        self.request_retries = request_retries
+        self.shed_queue_factor = shed_queue_factor
+        self.shed_retry_after_s = shed_retry_after_s
+
+    _OPTION_KEYS = (
+        "name",
+        "num_replicas",
+        "max_ongoing_requests",
+        "ray_actor_options",
+        "health_check_period_s",
+        "autoscaling_config",
+        "user_config",
+        "graceful_shutdown_timeout_s",
+        "request_timeout_s",
+        "request_retries",
+        "shed_queue_factor",
+        "shed_retry_after_s",
+    )
+
+    def options(self, **updates) -> "Deployment":
+        kwargs = {k: updates.get(k, getattr(self, k)) for k in self._OPTION_KEYS}
+        return Deployment(self._target, **kwargs)
+
+    def bind(self, *args, **kwargs) -> Application:
+        return Application(self, args, kwargs)
+
+    def spec(self) -> dict:
+        num = self.num_replicas
+        if self.autoscaling_config:
+            num = int(self.autoscaling_config.get("min_replicas", 1)) or 1
+        return {
+            "name": self.name,
+            "callable_blob": cloudpickle.dumps(self._target),
+            "num_replicas": num,
+            "max_ongoing_requests": self.max_ongoing_requests,
+            "ray_actor_options": self.ray_actor_options,
+            "autoscaling_config": self.autoscaling_config,
+            "user_config": self.user_config,
+            "health_check_period_s": self.health_check_period_s,
+            "graceful_shutdown_timeout_s": self.graceful_shutdown_timeout_s,
+            "request_timeout_s": self.request_timeout_s,
+            "request_retries": self.request_retries,
+            "shed_queue_factor": self.shed_queue_factor,
+            "shed_retry_after_s": self.shed_retry_after_s,
+        }
+
+
+def deployment(target=None, **options):
+    """``@serve.deployment`` decorator (parity: ``api.py``).
+
+    Works bare (``@serve.deployment``), parametrised
+    (``@serve.deployment(num_replicas=2)``), and as a direct call with
+    both (``serve.deployment(MyClass, num_replicas=2)``) — options must
+    never be silently dropped in the direct-call form."""
+    if target is not None and callable(target):
+        return Deployment(target, **options)
+
+    def wrap(t):
+        return Deployment(t, **options)
+
+    return wrap
+
+
+def _handle_config(spec: dict) -> dict:
+    """The per-deployment knobs a DeploymentHandle needs (shipped through
+    get_handle_info so live handles track redeploys)."""
+    autoscaling = spec.get("autoscaling_config") or {}
+    return {
+        "max_ongoing": spec.get("max_ongoing_requests", 8),
+        "shed_queue_factor": spec.get("shed_queue_factor", 6.0),
+        "shed_retry_after_s": spec.get("shed_retry_after_s", 1.0),
+        "request_timeout_s": spec.get("request_timeout_s", 120.0),
+        "request_retries": spec.get("request_retries", 3),
+        "graceful_shutdown_timeout_s": spec.get("graceful_shutdown_timeout_s", 20.0),
+        "max_replicas": autoscaling.get("max_replicas"),
+    }
+
+
+@ray_tpu_torch.remote(max_concurrency=8)
+class ServeController:
+    """Control plane: deployment table + replica reconciliation.
+
+    Every mutation of ``apps``/``routes``/replica sets persists to the GCS
+    KV (ns ``serve``); ``__init__`` restores from it and re-adopts replicas
+    that are still alive, so a controller death (or a head restart replaying
+    the detached-actor snapshot) never cold-starts the fleet.
+    """
+
+    RECONCILE_TICK_S = 0.25
+    DRAIN_TICK_S = 0.2
+    PROBE_BUDGET_S = 10.0
+
+    def __init__(self):
+        import threading
+
+        # app -> deployment name -> {spec, replicas: [handles], ...}
+        self.apps: Dict[str, Dict[str, dict]] = {}
+        # route_prefix -> app name (pushed to every proxy, incl. per-node)
+        self.routes: Dict[str, str] = {}
+        self._stop = False
+        # guards self.apps mutations against the reconciler thread (this actor
+        # is threaded, so handlers run concurrently)
+        self._lock = threading.Lock()
+        # replicas draining toward a kill: {replica, rid, deadline, app,
+        # deployment}; reaped by the drain loop once idle or past deadline
+        self._draining: List[dict] = []
+        self._drain_lock = threading.Lock()
+        self._restore_state()
+        self._reconciler = threading.Thread(target=self._reconcile_loop, daemon=True)
+        self._reconciler.start()
+        self._drainer = threading.Thread(target=self._drain_loop, daemon=True)
+        self._drainer.start()
+
+    # -- GCS KV persistence ------------------------------------------------
+
+    @staticmethod
+    def _kv_call(op: str, *args):
+        from ray_tpu_torch._private.worker import get_runtime
+
+        rt = get_runtime()
+        if hasattr(rt, "scheduler_rpc"):
+            return rt.scheduler_rpc(op, (_KV_NS,) + args)
+        return rt.rpc(op, _KV_NS, *args)
+
+    def _persist(self) -> None:
+        """Write apps (specs+edges), routes, and live replica ids. Small
+        state, rewritten whole per mutation — crash-consistent because the
+        restore path health-checks every adopted replica anyway."""
+        try:
+            with self._lock:
+                apps = {
+                    app: {
+                        "specs": [d["spec"] for d in deps.values()],
+                        "edges": {
+                            name: d.get("edges", []) for name, d in deps.items()
+                        },
+                    }
+                    for app, deps in self.apps.items()
+                }
+                rids = {
+                    app: {
+                        name: [r._actor_id.hex() for r in d["replicas"]]
+                        for name, d in deps.items()
+                    }
+                    for app, deps in self.apps.items()
+                }
+                routes = dict(self.routes)
+            self._kv_call("kv_put", _KV_APPS, cloudpickle.dumps(apps), True)
+            self._kv_call("kv_put", _KV_REPLICAS, cloudpickle.dumps(rids), True)
+            self._kv_call("kv_put", _KV_ROUTES, cloudpickle.dumps(routes), True)
+        except Exception:
+            logger.exception("serve controller: state persist failed")
+
+    def _clear_persisted(self) -> None:
+        for key in (_KV_APPS, _KV_REPLICAS, _KV_ROUTES, _KV_DRAINING):
+            try:
+                self._kv_call("kv_del", key)
+            except Exception:
+                pass
+
+    def _persist_draining(self) -> None:
+        """The drain queue must survive a controller crash: an orphaned
+        DRAINING replica rejects all work but holds its worker process and
+        ports forever (nothing else would ever kill it). Deadlines persist
+        as wall-clock (monotonic doesn't cross processes)."""
+        try:
+            now_mono = time.monotonic()
+            now_wall = time.time()
+            with self._drain_lock:
+                entries = [
+                    {
+                        "rid": e["rid"],
+                        "app": e["app"],
+                        "deployment": e["deployment"],
+                        "expires_at": now_wall + max(0.0, e["deadline"] - now_mono),
+                    }
+                    for e in self._draining
+                ]
+            self._kv_call(
+                "kv_put", _KV_DRAINING, cloudpickle.dumps(entries), True
+            )
+        except Exception:
+            logger.exception("serve controller: drain-queue persist failed")
+
+    def _restore_draining(self) -> None:
+        from ray_tpu_torch._private.ids import ActorID
+        from ray_tpu_torch.actor import _DynamicActorHandle
+
+        try:
+            blob = self._kv_call("kv_get", _KV_DRAINING)
+            if not blob:
+                return
+            entries = cloudpickle.loads(blob)
+        except Exception:
+            logger.exception("serve controller: drain-queue restore failed")
+            return
+        now_mono = time.monotonic()
+        now_wall = time.time()
+        restored = []
+        for e in entries:
+            try:
+                replica = _DynamicActorHandle(ActorID.from_hex(e["rid"]))
+            except Exception:
+                continue
+            restored.append(
+                {
+                    "replica": replica,
+                    "rid": e["rid"],
+                    "deadline": now_mono
+                    + max(0.0, e.get("expires_at", now_wall) - now_wall),
+                    "app": e.get("app", "?"),
+                    "deployment": e.get("deployment", "?"),
+                }
+            )
+        if restored:
+            with self._drain_lock:
+                self._draining.extend(restored)
+
+    def _restore_state(self) -> None:
+        """Recover apps/routes from the KV and re-adopt live replicas."""
+        self._restore_draining()  # independent of apps: pending retirements
+        try:
+            blob = self._kv_call("kv_get", _KV_APPS)
+            if not blob:
+                return
+            apps = cloudpickle.loads(blob)
+            rblob = self._kv_call("kv_get", _KV_REPLICAS)
+            rids_map = cloudpickle.loads(rblob) if rblob else {}
+            routes_blob = self._kv_call("kv_get", _KV_ROUTES)
+            self.routes = cloudpickle.loads(routes_blob) if routes_blob else {}
+        except Exception:
+            logger.exception("serve controller: state restore failed; starting empty")
+            return
+        adopted_total = 0
+        for app_name, payload in apps.items():
+            try:
+                deployments: Dict[str, dict] = {}
+                handles: Dict[str, DeploymentHandle] = {}
+                for spec in payload["specs"]:
+                    name = spec["name"]
+                    edges = payload["edges"].get(name, [])
+                    init_args = list(spec["init_args"])
+                    init_kwargs = dict(spec["init_kwargs"])
+                    for key, child in edges:
+                        if isinstance(key, int):
+                            init_args[key] = handles[child]
+                        else:
+                            init_kwargs[key] = handles[child]
+                    adopted = self._adopt_replicas(
+                        rids_map.get(app_name, {}).get(name, [])
+                    )
+                    adopted_total += len(adopted)
+                    deployments[name] = {
+                        "spec": spec,
+                        "init_args": init_args,
+                        "init_kwargs": init_kwargs,
+                        "edges": edges,
+                        "replicas": adopted,
+                        "health": "HEALTHY" if adopted else "UNHEALTHY",
+                    }
+                    handles[name] = DeploymentHandle(
+                        name, app_name, adopted, config=_handle_config(spec)
+                    )
+                self.apps[app_name] = deployments
+            except Exception:
+                logger.exception(
+                    "serve controller: could not restore app %r", app_name
+                )
+        if self.apps:
+            _event(
+                "SERVE_CONTROLLER_RECOVERED",
+                f"controller restored {len(self.apps)} app(s), re-adopted "
+                f"{adopted_total} live replica(s); reconcile will top up the rest",
+                severity="WARNING",
+                apps=sorted(self.apps),
+                adopted_replicas=adopted_total,
+            )
+
+    @staticmethod
+    def _adopt_replicas(rid_hexes: List[str]) -> List[Any]:
+        """Health-check persisted replica ids; return handles for the ones
+        still alive (the whole point of controller FT: don't cold-start)."""
+        from ray_tpu_torch._private.ids import ActorID
+        from ray_tpu_torch.actor import _DynamicActorHandle
+
+        candidates = []
+        for h in rid_hexes:
+            try:
+                candidates.append(_DynamicActorHandle(ActorID.from_hex(h)))
+            except Exception:
+                continue
+        refs = []
+        for r in candidates:
+            try:
+                refs.append(r.check_health.remote())
+            except Exception:
+                refs.append(None)
+        alive = []
+        deadline = time.monotonic() + 10.0
+        for r, ref in zip(candidates, refs):
+            if ref is None:
+                continue
+            try:
+                ray_tpu_torch.get(ref, timeout=max(0.5, deadline - time.monotonic()))
+                alive.append(r)
+            except Exception:
+                continue
+        return alive
+
+    # -- deploy ------------------------------------------------------------
+
+    def deploy_application(self, app_name: str, specs: List[dict], edges: Dict[str, List]):
+        """specs are topologically ordered; edges[name] = list of
+        (arg_index_or_kwarg, child_name) to replace with handles."""
+        deployments: Dict[str, dict] = {}
+        handles: Dict[str, DeploymentHandle] = {}
+        consumed: set = set()  # deployments whose replicas carried over
+        with self._lock:
+            live = self.apps.get(app_name) or {}
+        for spec in specs:
+            name = spec["name"]
+            init_args = list(spec["init_args"])
+            init_kwargs = dict(spec["init_kwargs"])
+            for key, child in edges.get(name, []):
+                if isinstance(key, int):
+                    init_args[key] = handles[child]
+                else:
+                    init_kwargs[key] = handles[child]
+            prev = live.get(name)
+            if prev is not None and self._only_user_config_changed(prev["spec"], spec):
+                # lightweight update (parity: deployment_state.py): push the
+                # new user_config to live replicas via reconfigure() instead
+                # of restarting them. The live table is NOT mutated here — a
+                # later failure in this deploy leaves it fully consistent.
+                replicas = list(prev["replicas"])
+                ray_tpu_torch.get(
+                    [r.reconfigure.remote(spec["user_config"]) for r in replicas],
+                    timeout=120,
+                )
+                consumed.add(name)
+                deployments[name] = {
+                    "spec": spec,
+                    "init_args": init_args,
+                    "init_kwargs": init_kwargs,
+                    "edges": edges.get(name, []),
+                    "replicas": replicas,
+                    "health": prev.get("health", "HEALTHY"),
+                }
+                handles[name] = DeploymentHandle(
+                    name, app_name, replicas, config=_handle_config(spec)
+                )
+                continue
+            replicas = self._start_replicas(spec, init_args, init_kwargs)
+            deployments[name] = {
+                "spec": spec,
+                "init_args": init_args,
+                "init_kwargs": init_kwargs,
+                "edges": edges.get(name, []),
+                "replicas": replicas,
+                "health": "HEALTHY",
+            }
+            handles[name] = DeploymentHandle(
+                name, app_name, replicas, config=_handle_config(spec)
+            )
+        # gracefully retire a previous version of the app (minus deployments
+        # whose replicas were carried over by a lightweight user_config
+        # update): old replicas drain — finish in-flight work, reject new —
+        # and are only killed once idle or past graceful_shutdown_timeout_s
+        with self._lock:
+            old = self.apps.get(app_name)
+            self.apps[app_name] = deployments
+        if old:
+            self._drain_app(
+                app_name, {k: v for k, v in old.items() if k not in consumed}
+            )
+        self._persist()
+        return True
+
+    def _start_replicas(self, spec: dict, init_args, init_kwargs):
+        opts = dict(spec["ray_actor_options"])
+        max_ongoing = spec["max_ongoing_requests"]
+        replicas = []
+        for _ in range(spec["num_replicas"]):
+            # thread pool larger than the request gate so queued requests
+            # are counted (autoscaling metric) and health probes aren't
+            # starved by busy request threads
+            r = Replica.options(
+                max_concurrency=min(64, max_ongoing * 4 + 4),
+                num_cpus=opts.get("num_cpus", 0.0),
+                num_gpus=opts.get("num_gpus", 0.0),
+                resources=opts.get("resources"),
+            ).remote(spec["callable_blob"], init_args, init_kwargs, max_ongoing,
+                     spec.get("user_config"), spec.get("name", ""))
+            replicas.append(r)
+        # wait until they respond (surface init errors early)
+        ray_tpu_torch.get([r.check_health.remote() for r in replicas], timeout=120)
+        return replicas
+
+    @staticmethod
+    def _only_user_config_changed(old_spec: dict, new_spec: dict) -> bool:
+        keys = set(old_spec) | set(new_spec)
+        for k in keys - {"user_config"}:
+            try:
+                same = bool(old_spec.get(k) == new_spec.get(k))
+            except Exception:  # e.g. numpy array args: ambiguous truth value
+                same = False
+            if not same:
+                return False
+        try:
+            return bool(
+                old_spec.get("user_config") != new_spec.get("user_config")
+            )
+        except Exception:
+            return True  # un-comparable configs: deliver the new one
+
+    # -- graceful drain ----------------------------------------------------
+
+    def _drain_app(self, app_name: str, deployments: Dict[str, dict]):
+        for name, d in deployments.items():
+            self._drain_replicas(app_name, name, d["spec"], d["replicas"])
+
+    def _drain_replicas(self, app_name: str, dep_name: str, spec: dict, replicas):
+        """Mark replicas DRAINING and queue them for the drain loop: killed
+        once idle (in-flight requests, streams, and websocket sessions have
+        finished) or past the deployment's graceful_shutdown_timeout_s."""
+        if not replicas:
+            return
+        timeout = float(spec.get("graceful_shutdown_timeout_s", 20.0) or 0.0)
+        deadline = time.monotonic() + timeout
+        entries = []
+        for r in replicas:
+            try:
+                r.prepare_drain.remote()  # fire-and-forget: flag flips fast
+            except Exception:
+                pass
+            entries.append(
+                {
+                    "replica": r,
+                    "rid": r._actor_id.hex(),
+                    "deadline": deadline,
+                    "app": app_name,
+                    "deployment": dep_name,
+                }
+            )
+        with self._drain_lock:
+            self._draining.extend(entries)
+        self._persist_draining()
+
+    def _drain_loop(self):
+        while not self._stop:
+            time.sleep(self.DRAIN_TICK_S)
+            try:
+                self._reap_draining_once()
+            except Exception:
+                logger.exception("serve controller: drain pass failed")
+
+    def _reap_draining_once(self, force_deadline: Optional[float] = None) -> int:
+        """One drain pass: kill entries that are idle or expired; returns
+        how many remain. ``force_deadline`` overrides per-entry deadlines
+        (synchronous shutdown path)."""
+        with self._drain_lock:
+            entries = list(self._draining)
+        if not entries:
+            return 0
+        # probe all draining replicas in parallel (a hung one must not
+        # stall the pass). drain_status is atomic (draining, ongoing): an
+        # idle-kill requires the replica to have CONFIRMED the drain flag —
+        # otherwise a dispatch racing the fire-and-forget prepare_drain
+        # could start executing between our probe and the kill.
+        refs = []
+        for e in entries:
+            try:
+                refs.append(e["replica"].drain_status.remote())
+            except Exception:
+                refs.append(None)
+        deadline = time.monotonic() + 5.0
+        finished = []
+        for e, ref in zip(entries, refs):
+            ongoing = None
+            draining = False
+            dead = ref is None
+            if ref is not None:
+                try:
+                    draining, ongoing = ray_tpu_torch.get(
+                        ref, timeout=max(0.5, deadline - time.monotonic())
+                    )
+                except Exception:
+                    dead = True  # dead or unreachable: reap it
+            if not dead and not draining:
+                # flag not confirmed yet: re-send and wait for next tick
+                try:
+                    e["replica"].prepare_drain.remote()
+                except Exception:
+                    pass
+            entry_deadline = e["deadline"]
+            if force_deadline is not None:
+                entry_deadline = min(entry_deadline, force_deadline)
+            expired = time.monotonic() > entry_deadline
+            if (draining and ongoing == 0) or dead or expired:
+                try:
+                    ray_tpu_torch.kill(e["replica"])
+                except Exception:
+                    pass
+                _inc("drained", e["deployment"])
+                _event(
+                    "REPLICA_DRAINED",
+                    f"replica {e['rid'][:12]} of {e['app']}/{e['deployment']} "
+                    + (
+                        "drained idle"
+                        if draining and ongoing == 0
+                        else (
+                            "already dead"
+                            if dead and not expired
+                            else f"drain timed out with {ongoing} in flight"
+                        )
+                    ),
+                    severity="INFO" if (draining and ongoing == 0) else "WARNING",
+                    deployment=e["deployment"],
+                    app=e["app"],
+                    replica_id=e["rid"],
+                )
+                finished.append(e["rid"])
+        if finished:
+            with self._drain_lock:
+                self._draining = [
+                    e for e in self._draining if e["rid"] not in finished
+                ]
+            self._persist_draining()
+        with self._drain_lock:
+            return len(self._draining)
+
+    # -- data-plane discovery ---------------------------------------------
+
+    def get_handle_info(self, app_name: str, deployment_name: Optional[str] = None):
+        app = self.apps.get(app_name)
+        if app is None:
+            return None
+        if deployment_name is None:
+            deployment_name = next(reversed(app))  # ingress = last deployed
+        d = app.get(deployment_name)
+        if d is None:
+            return None
+        # replicas: the serving set only — draining/dead replicas are
+        # removed from the table the moment their retirement starts, so
+        # handles and proxies stop routing to them on their next refresh.
+        # depths: controller-probed queue lengths (parity: the replica
+        # queue-len probes of pow_2_scheduler.py:49, amortized through the
+        # reconcile loop instead of per-request RPCs)
+        return {
+            "deployment": deployment_name,
+            "replicas": list(d["replicas"]),
+            "depths": d.get("depths"),
+            "health": d.get("health", "HEALTHY"),
+            "config": _handle_config(d["spec"]),
+        }
+
+    def register_route(self, route_prefix: str, app_name: str) -> bool:
+        self.routes[route_prefix] = app_name
+        self._persist()
+        return True
+
+    def get_routes(self) -> Dict[str, str]:
+        return dict(self.routes)
+
+    def status(self):
+        with self._drain_lock:
+            draining: Dict[tuple, int] = {}
+            for e in self._draining:
+                key = (e["app"], e["deployment"])
+                draining[key] = draining.get(key, 0) + 1
+        out = {}
+        for app, deps in self.apps.items():
+            out[app] = {}
+            for name, d in deps.items():
+                spec = d["spec"]
+                out[app][name] = {
+                    "num_replicas": len(d["replicas"]),
+                    "target": spec["num_replicas"],
+                    "health": d.get("health", "HEALTHY"),
+                    "draining": draining.get((app, name), 0),
+                    # controller-aggregated per-deployment request latency
+                    # (sliding-window p50/p95/p99 across ALL replicas, with
+                    # exemplar trace ids for the slow tail)
+                    "latency": d.get("latency"),
+                    # stream-TTFT fold (streaming deployments only): the
+                    # tracing plane's per-stream first-token spans, rolled
+                    # into a per-deployment window — the LLM SLO surface
+                    "ttft": d.get("ttft"),
+                    # the resilience knobs, surfaced for operators
+                    # (docstring: Deployment)
+                    "config": _handle_config(spec),
+                }
+        return out
+
+    def delete_application(self, app_name: str):
+        with self._lock:
+            app = self.apps.pop(app_name, None)
+            doomed_routes = [
+                p for p, a in self.routes.items() if a == app_name
+            ]
+            for p in doomed_routes:
+                del self.routes[p]
+        # best-effort: stop live proxies from serving the stale routes
+        if doomed_routes:
+            from ray_tpu_torch.serve._proxy import _PROXY_NAME
+
+            names = [_PROXY_NAME] + [
+                f"{_PROXY_NAME}:{n['node_id'][:12]}" for n in ray_tpu_torch.nodes()
+            ]
+            for name in names:
+                try:
+                    proxy = ray_tpu_torch.get_actor(name)
+                    for p in doomed_routes:
+                        proxy.remove_route.remote(p)
+                except ValueError:
+                    pass
+        if app:
+            self._drain_app(app_name, app)
+        self._persist()
+        return True
+
+    def shutdown_all(self):
+        self._stop = True
+        for app in list(self.apps):
+            self.delete_application(app)
+        # synchronous bounded drain: the loops are stopping, so reap here
+        # until every retired replica is idle-killed or times out
+        deadline = time.monotonic() + 30.0
+        while time.monotonic() < deadline:
+            if self._reap_draining_once(force_deadline=deadline) == 0:
+                break
+            time.sleep(self.DRAIN_TICK_S)
+        # expire stragglers immediately
+        self._reap_draining_once(force_deadline=0.0)
+        self._clear_persisted()
+        return True
+
+    def _autoscale_target(self, d: dict, alive, depths) -> None:
+        """Queue-depth autoscaling (parity: serve autoscaling_policy.py):
+        desired = clamp(ceil(total_ongoing / target), min, max), where
+        total_ongoing is the replicas' queued+running depth. Only moves the
+        TARGET; the reconcile pass starts/drains replicas toward it.
+
+        With ``target_ttft_ms`` set, the folded stream-TTFT window acts as
+        a second scale-UP signal: a p99 TTFT above target asks for one more
+        replica even when queue depths look fine (decode slots saturated by
+        long streams rather than queued requests). TTFT never scales down —
+        an idle deployment has no TTFT samples, only depths."""
+        cfg = d["spec"].get("autoscaling_config")
+        if not cfg or not alive or depths is None:
+            return
+        total = sum(depths)
+        target = float(cfg.get("target_ongoing_requests", 2.0))
+        lo = int(cfg.get("min_replicas", 1))
+        hi = int(cfg.get("max_replicas", max(lo, 1)))
+        import math
+
+        desired = max(lo, min(hi, math.ceil(total / max(target, 1e-9)) or lo))
+        ttft_target = cfg.get("target_ttft_ms")
+        if ttft_target is not None:
+            snap = d.get("ttft") or {}
+            p99 = snap.get("p99")
+            if snap.get("count", 0) >= int(cfg.get("ttft_min_samples", 5)) and (
+                p99 is not None and float(p99) > float(ttft_target)
+            ):
+                desired = max(desired, min(hi, len(alive) + 1))
+        d["spec"]["num_replicas"] = desired
+
+    # -- reconciliation (parity: DeploymentState reconcile loop) ----------
+
+    def _reconcile_loop(self):
+        failures = 0
+        while not self._stop:
+            time.sleep(self.RECONCILE_TICK_S)
+            try:
+                self._reconcile_once()
+                failures = 0
+            except Exception as e:
+                # a reconcile crash must be loud (it silently disabled
+                # healing before) and must not hot-loop
+                failures += 1
+                logger.exception("serve controller: reconcile pass failed")
+                _event(
+                    "SERVE_RECONCILE_ERROR",
+                    f"reconcile pass failed ({failures} consecutive): "
+                    f"{type(e).__name__}: {e}",
+                    severity="ERROR",
+                    consecutive_failures=failures,
+                )
+                time.sleep(min(0.5 * (2 ** min(failures, 6)), 30.0))
+
+    def _reconcile_once(self):
+        now = time.monotonic()
+        with self._lock:
+            snapshot = list(self.apps.items())
+        # select deployments whose probe period elapsed, then fan ALL their
+        # health probes out before collecting any (one hung replica costs
+        # the shared budget, not 10s x replicas serially)
+        due = []
+        for app_name, deployments in snapshot:
+            for name, d in deployments.items():
+                period = float(d["spec"].get("health_check_period_s", 5.0) or 5.0)
+                if now >= d.get("_next_probe", 0.0):
+                    d["_next_probe"] = now + period
+                    replicas = list(d["replicas"])
+                    refs = []
+                    for r in replicas:
+                        try:
+                            refs.append(r.check_health.remote())
+                        except Exception:
+                            refs.append(None)
+                    due.append((app_name, name, d, replicas, refs))
+        if not due:
+            return
+        probe_deadline = time.monotonic() + self.PROBE_BUDGET_S
+        for app_name, name, d, replicas, refs in due:
+            alive = []
+            for r, ref in zip(replicas, refs):
+                ok = False
+                if ref is not None:
+                    try:
+                        ray_tpu_torch.get(
+                            ref,
+                            timeout=max(0.5, probe_deadline - time.monotonic()),
+                        )
+                        ok = True
+                    except Exception:
+                        ok = False
+                if ok:
+                    alive.append(r)
+                else:
+                    _inc("deaths", name)
+                    _event(
+                        "REPLICA_DIED",
+                        f"replica {r._actor_id.hex()[:12]} of "
+                        f"{app_name}/{name} failed its health probe",
+                        severity="ERROR",
+                        deployment=name,
+                        app=app_name,
+                        replica_id=r._actor_id.hex(),
+                    )
+            # probe queue depths once per pass: feeds both autoscaling
+            # and the handles' probed pow-2 routing (via get_handle_info)
+            depths = None
+            try:
+                depth_refs = [r.num_ongoing.remote() for r in alive]
+                depths = ray_tpu_torch.get(
+                    depth_refs,
+                    timeout=max(0.5, probe_deadline - time.monotonic()),
+                )
+            except Exception:
+                pass
+            # keyed by replica id: stays correct across drains/refreshes
+            d["depths"] = (
+                {
+                    r._actor_id.hex(): depth
+                    for r, depth in zip(alive, depths)
+                }
+                if depths is not None
+                else None
+            )
+            # per-DEPLOYMENT latency aggregation: fold every replica's
+            # sliding-window samples (with exemplar trace ids) into one
+            # window — the per-replica histograms only tell half the story
+            try:
+                sample_refs = [r.latency_samples.remote() for r in alive]
+                all_samples = ray_tpu_torch.get(
+                    sample_refs,
+                    timeout=max(0.5, probe_deadline - time.monotonic()),
+                )
+                from ray_tpu_torch._private.telemetry import LatencyWindow
+                from ray_tpu_torch._private.worker import get_runtime
+
+                win = LatencyWindow(
+                    window_s=float(
+                        getattr(
+                            get_runtime().config, "latency_window_s", 60.0
+                        )
+                    )
+                )
+                for samples in all_samples:
+                    if samples:
+                        win.merge_from(samples)
+                d["latency"] = win.snapshot()
+            except Exception:
+                pass
+            # stream-TTFT aggregation (same fold, separate window): the
+            # per-deployment p50/p99 TTFT shown by serve.status() and the
+            # TTFT-driven autoscaling signal (target_ttft_ms)
+            try:
+                ttft_refs = [r.ttft_samples.remote() for r in alive]
+                all_ttft = ray_tpu_torch.get(
+                    ttft_refs,
+                    timeout=max(0.5, probe_deadline - time.monotonic()),
+                )
+                from ray_tpu_torch._private.telemetry import LatencyWindow as _LW
+                from ray_tpu_torch._private.worker import get_runtime as _grt
+
+                twin = _LW(
+                    window_s=float(
+                        getattr(_grt().config, "latency_window_s", 60.0)
+                    )
+                )
+                for samples in all_ttft:
+                    if samples:
+                        twin.merge_from(samples)
+                d["ttft"] = twin.snapshot()
+            except Exception:
+                pass
+            # health state vs the PRE-autoscale target and BEFORE repair:
+            # replica deaths are the forensics signal, an autoscale-up gap
+            # is not
+            self._update_health(
+                app_name, name, d, len(alive), d["spec"]["num_replicas"]
+            )
+            self._autoscale_target(d, alive, depths)
+            want = d["spec"]["num_replicas"]
+            if len(alive) > want:
+                # scale-down (autoscale or adoption overflow): gracefully
+                # drain the idlest extras instead of killing mid-request
+                order = sorted(
+                    range(len(alive)),
+                    key=lambda i: depths[i] if depths else 0,
+                )
+                drop = set(order[: len(alive) - want])
+                self._drain_replicas(
+                    app_name, name, d["spec"], [alive[i] for i in drop]
+                )
+                alive = [r for i, r in enumerate(alive) if i not in drop]
+            fresh = []
+            if len(alive) < want:
+                fresh = self._start_replicas(
+                    {**d["spec"], "num_replicas": want - len(alive)},
+                    d["init_args"],
+                    d["init_kwargs"],
+                )
+            # only commit if this app/deployment is still current —
+            # a concurrent redeploy/delete must not get replicas
+            # resurrected into its orphaned table
+            changed = bool(fresh) or len(alive) != len(replicas)
+            with self._lock:
+                current = self.apps.get(app_name)
+                if current is not None and current.get(name) is d:
+                    d["replicas"] = alive + fresh
+                else:
+                    for r in fresh:
+                        try:
+                            ray_tpu_torch.kill(r)
+                        except Exception:
+                            pass
+                    changed = False
+            if changed:
+                self._persist()
+
+    def _update_health(self, app_name: str, name: str, d: dict,
+                       n_alive: int, want: int) -> None:
+        if want <= 0 or n_alive >= want:
+            health = "HEALTHY"
+        elif n_alive == 0:
+            health = "UNHEALTHY"
+        else:
+            health = "DEGRADED"
+        prev = d.get("health", "HEALTHY")
+        d["health"] = health
+        if health == prev:
+            return
+        if health == "HEALTHY":
+            _event(
+                "DEPLOYMENT_HEALTHY",
+                f"deployment {app_name}/{name} recovered ({n_alive}/{want})",
+                severity="INFO",
+                deployment=name,
+                app=app_name,
+            )
+        else:
+            _event(
+                "DEPLOYMENT_UNHEALTHY",
+                f"deployment {app_name}/{name} is {health} "
+                f"({n_alive}/{want} replicas alive)",
+                severity="ERROR" if health == "UNHEALTHY" else "WARNING",
+                deployment=name,
+                app=app_name,
+                health=health,
+                alive=n_alive,
+                target=want,
+            )
+
+
+# --------------------------------------------------------------------------
+# module-level API
+# --------------------------------------------------------------------------
+
+
+def _get_or_create_controller():
+    try:
+        return ray_tpu_torch.get_actor(_CONTROLLER_NAME)
+    except ValueError:
+        pass
+    try:
+        # detached + infinitely restartable: survives its creating driver,
+        # auto-restarts after a crash (fresh incarnation restores from the
+        # KV), and rides the head snapshot across head restarts
+        return ServeController.options(
+            name=_CONTROLLER_NAME,
+            num_cpus=0,
+            lifetime="detached",
+            max_restarts=-1,
+        ).remote()
+    except ValueError:
+        return ray_tpu_torch.get_actor(_CONTROLLER_NAME)
+
+
+def _flatten_graph(app: Application):
+    """DFS the bound graph; returns (ordered specs, edges)."""
+    specs: List[dict] = []
+    edges: Dict[str, List] = {}
+    seen: Dict[int, str] = {}
+
+    def visit(node: Application) -> str:
+        if id(node) in seen:
+            return seen[id(node)]
+        name = node.deployment.name
+        my_edges = []
+        args = []
+        for i, a in enumerate(node.args):
+            if isinstance(a, Application):
+                child = visit(a)
+                my_edges.append((i, child))
+                args.append(None)
+            else:
+                args.append(a)
+        kwargs = {}
+        for k, v in node.kwargs.items():
+            if isinstance(v, Application):
+                child = visit(v)
+                my_edges.append((k, child))
+                kwargs[k] = None
+            else:
+                kwargs[k] = v
+        spec = node.deployment.spec()
+        spec["init_args"] = args
+        spec["init_kwargs"] = kwargs
+        specs.append(spec)
+        edges[name] = my_edges
+        seen[id(node)] = name
+        return name
+
+    visit(app)
+    return specs, edges
+
+
+def run(app: Application, *, name: str = "default", route_prefix: Optional[str] = None,
+        _blocking: bool = True) -> DeploymentHandle:
+    if not isinstance(app, Application):
+        raise TypeError("serve.run expects a bound deployment: use .bind()")
+    controller = _get_or_create_controller()
+    specs, edges = _flatten_graph(app)
+    ray_tpu_torch.get(controller.deploy_application.remote(name, specs, edges), timeout=180)
+    if route_prefix is not None:
+        from ray_tpu_torch.serve._proxy import ensure_proxy
+
+        ensure_proxy(controller, name, route_prefix)
+    return get_app_handle(name)
+
+
+def _handle_from_info(app_name: str, info: dict) -> DeploymentHandle:
+    return DeploymentHandle(
+        info["deployment"],
+        app_name,
+        info["replicas"],
+        config=info.get("config"),
+    )
+
+
+def get_app_handle(name: str = "default") -> DeploymentHandle:
+    controller = ray_tpu_torch.get_actor(_CONTROLLER_NAME)
+    info = ray_tpu_torch.get(controller.get_handle_info.remote(name), timeout=60)
+    if info is None:
+        raise ValueError(f"no serve application named '{name}'")
+    return _handle_from_info(name, info)
+
+
+def get_deployment_handle(deployment_name: str, app_name: str = "default") -> DeploymentHandle:
+    controller = ray_tpu_torch.get_actor(_CONTROLLER_NAME)
+    info = ray_tpu_torch.get(
+        controller.get_handle_info.remote(app_name, deployment_name), timeout=60
+    )
+    if info is None:
+        raise ValueError(f"no deployment '{deployment_name}' in app '{app_name}'")
+    return _handle_from_info(app_name, info)
+
+
+def status() -> dict:
+    controller = ray_tpu_torch.get_actor(_CONTROLLER_NAME)
+    return ray_tpu_torch.get(controller.status.remote(), timeout=60)
+
+
+def delete(name: str):
+    controller = ray_tpu_torch.get_actor(_CONTROLLER_NAME)
+    ray_tpu_torch.get(controller.delete_application.remote(name), timeout=60)
+
+
+def shutdown():
+    try:
+        controller = ray_tpu_torch.get_actor(_CONTROLLER_NAME)
+    except ValueError:
+        return
+    try:
+        ray_tpu_torch.get(controller.shutdown_all.remote(), timeout=60)
+    except Exception:
+        pass
+    try:
+        ray_tpu_torch.kill(controller)
+    except Exception:
+        pass

@@ -1,0 +1,769 @@
+"""DeploymentHandle: the data-plane RPC handle between callers and replicas.
+
+Parity: ``python/ray/serve/handle.py`` + the power-of-two-choices replica
+scheduler (``replica_scheduler/pow_2_scheduler.py:49``): pick two random
+replicas, send to the one with fewer requests outstanding *from this handle*.
+Extensions matching the reference: streaming responses
+(``handle.options(stream=True)``), model-multiplex-aware routing
+(``options(multiplexed_model_id=...)`` prefers replicas that already hold
+the model), and periodic replica-list refresh so autoscaling is visible to
+live handles.
+
+Resilience plane (parity: the retry/backpressure semantics of the replica
+scheduler + ``proxy_request_response``): dead or DRAINING replicas are
+excluded from pow-2 picks the moment an error identifies them; requests the
+scheduler proves never started executing (``ActorDiedError.task_started is
+False``, or a drain rejection) fail over transparently to another replica
+under a bounded backoff budget; torn work surfaces as a typed
+:class:`~ray_tpu_torch.serve.exceptions.ReplicaDiedError`. Admission control sheds
+load with :class:`~ray_tpu_torch.serve.exceptions.DeploymentOverloadedError` once
+queued work exceeds ``replicas x max_ongoing_requests x shed_queue_factor``,
+with a half-open probe per ``shed_retry_after_s`` window when the trigger is
+(possibly stale) controller-probed depth rather than live local load.
+"""
+
+from __future__ import annotations
+
+import random
+import threading
+import time
+import warnings
+from typing import Any, Dict, List, Optional
+
+import ray_tpu_torch
+from ray_tpu_torch.exceptions import ActorDiedError, GetTimeoutError
+from ray_tpu_torch.serve.exceptions import (
+    DeploymentOverloadedError,
+    ReplicaDiedError,
+    ReplicaDrainingError,
+    RequestTimeoutError,
+)
+
+_REFRESH_PERIOD_S = 2.0
+_EXCLUDE_TTL_S = 30.0
+_RETRY_BACKOFF_S = 0.05
+_RETRY_BACKOFF_MAX_S = 1.0
+_SHED_EVENT_PERIOD_S = 5.0
+
+# per-deployment knobs a handle needs; refreshed from the controller's
+# handle-info, seeded from Deployment at construction (see Deployment
+# docstring for what each knob does)
+_DEFAULT_CFG = {
+    "max_ongoing": 8,
+    "shed_queue_factor": 6.0,
+    "shed_retry_after_s": 1.0,
+    "request_timeout_s": 120.0,
+    "request_retries": 3,
+    "graceful_shutdown_timeout_s": 20.0,
+    # autoscaling max_replicas (None when not autoscaled): admission
+    # capacity is computed against the deployment's MAX size — queued work
+    # is the scale-up signal, shedding it would starve the autoscaler
+    "max_replicas": None,
+}
+
+_warned_option_keys: set = set()
+
+# handle-side telemetry (driver or proxy process); lazy singletons like the
+# replica metrics — records are local dict updates batched by telemetry
+_metrics: dict = {}
+
+
+def _handle_metrics() -> dict:
+    if not _metrics:
+        from ray_tpu_torch.util.metrics import Counter
+
+        _metrics["retries"] = Counter(
+            "ray_tpu_torch_serve_retries_total",
+            "transparent replica-failover retries of unstarted requests",
+            tag_keys=("deployment",),
+        )
+        _metrics["shed"] = Counter(
+            "ray_tpu_torch_serve_shed_total",
+            "requests shed by deployment admission control",
+            tag_keys=("deployment",),
+        )
+    return _metrics
+
+
+def _record_counter(name: str, deployment: str) -> None:
+    try:
+        _handle_metrics()[name].inc(tags={"deployment": deployment})
+    except Exception:
+        pass  # metrics never fail a request
+
+
+def _trace_event(name: str, **extra) -> None:
+    """Instant span under the active trace context (retry/shed decisions —
+    the handle's routing story inside ray_tpu_torch.trace output). No-op when
+    untraced; never fails a request."""
+    try:
+        from ray_tpu_torch.util import tracing
+        from ray_tpu_torch._private import telemetry
+
+        ctx = tracing.get_current_context()
+        if ctx is None:
+            return
+        now = time.time()
+        telemetry.record_span(
+            {
+                "event": name,
+                "start": now,
+                "end": now,
+                "duration_ms": 0.0,
+                "pid": __import__("os").getpid(),
+                "extra": {
+                    **extra,
+                    "trace_id": ctx.trace_id,
+                    "span_id": tracing._new_id(8),
+                    "parent_id": ctx.span_id,
+                },
+            }
+        )
+    except Exception:
+        pass
+
+
+class DeploymentResponse:
+    """Future for one deployment call (parity: ``DeploymentResponse``).
+
+    ``result()`` transparently fails the call over to another replica when
+    the scheduler proves the request never started executing on a dead or
+    draining replica; torn work raises ``ReplicaDiedError``.
+    """
+
+    def __init__(self, ref: ray_tpu_torch.ObjectRef, on_done=None, call=None):
+        self._ref = ref
+        self._on_done = on_done
+        self._settled = False
+        # (handle, method, args, kwargs, replica_id): retained for failover
+        # re-dispatch; None for bare refs (back-compat constructions)
+        self._call = call
+        self._attempts = 0
+        # the request's trace context: failover re-dispatches re-activate it
+        # so retried attempts land in the SAME trace
+        self._trace_ctx = None
+
+    def result(self, timeout_s: Optional[float] = None) -> Any:
+        deadline = None if timeout_s is None else time.monotonic() + timeout_s
+        while True:
+            remaining = (
+                None if deadline is None else max(0.0, deadline - time.monotonic())
+            )
+            try:
+                value = ray_tpu_torch.get(self._ref, timeout=remaining)
+            except BaseException as e:  # noqa: BLE001
+                if self._call is None or _classify_failure(e) is None:
+                    self._settle()
+                    raise
+                try:
+                    self._redispatch(e)
+                except BaseException:
+                    self._settle()
+                    raise
+                continue
+            self._settle()
+            return value
+
+    def _redispatch(self, error: BaseException) -> None:
+        """Fail over to another replica (or raise ReplicaDiedError)."""
+        from ray_tpu_torch.util import tracing
+
+        handle, method, args, kwargs, rid = self._call
+        with tracing.scope(self._trace_ctx):
+            new_ref, new_rid, new_done = handle._failover(
+                method, args, kwargs, rid, error, self._attempts
+            )
+        self._attempts += 1
+        # settle the failed dispatch's outstanding slot, then track the new
+        if self._on_done:
+            try:
+                self._on_done()
+            except Exception:
+                pass
+        self._ref = new_ref
+        self._on_done = new_done
+        self._call = (handle, method, args, kwargs, new_rid)
+
+    def _settle(self):
+        if not self._settled:
+            self._settled = True
+            self._call = None  # release retained args once the call settles
+            if self._on_done:
+                self._on_done()
+
+    def __del__(self):
+        # fire-and-forget callers never call result(); settle on GC so the
+        # replica's outstanding counter doesn't inflate forever
+        try:
+            self._settle()
+        except Exception:
+            pass
+
+    def _to_object_ref(self) -> ray_tpu_torch.ObjectRef:
+        return self._ref
+
+
+class DeploymentResponseGenerator:
+    """Streaming response: iterate per-item results (parity:
+    ``DeploymentResponseGenerator``).
+
+    A stream whose replica dies before the first item failed over to
+    another replica (nothing was delivered, nothing is torn); once items
+    have flowed, replica death surfaces as ``ReplicaDiedError(started=True)``
+    — the caller owns dedup/resume semantics for partially-consumed streams.
+    Per-item waits are bounded by the handle's ``stream_item_timeout_s``
+    (``options()``), raising a typed ``RequestTimeoutError``.
+    """
+
+    def __init__(self, gen=None, on_done=None, *, handle=None, method=None,
+                 args=None, kwargs=None, trace_ctx=None):
+        # legacy positional (gen, on_done) construction still works for
+        # callers that pre-dispatched; handle-driven construction enables
+        # failover re-dispatch
+        self._gen = gen
+        self._on_done = on_done
+        self._settled = False
+        self._handle = handle
+        self._method = method
+        self._args = args
+        self._kwargs = kwargs
+        # request trace context: every (re-)dispatch activates it so the
+        # stream's attempts all land in one trace
+        self._trace_ctx = trace_ctx
+
+    def __iter__(self):
+        if self._handle is None:
+            yield from self._iter_legacy()
+            return
+        from ray_tpu_torch.util import tracing
+
+        handle = self._handle
+        item_timeout = handle._stream_item_timeout_s
+        attempts = 0
+        while True:
+            with tracing.scope(self._trace_ctx):
+                gen, rid, done = handle._dispatch(
+                    self._method, self._args, self._kwargs, streaming=True
+                )
+            got_any = False
+            try:
+                try:
+                    next_ref = getattr(gen, "next_ref", None)
+                    while True:
+                        try:
+                            # bounded per-item wait (typed timeout) — the
+                            # producer committing nothing for item_timeout
+                            # must not park the consumer forever
+                            ref = (
+                                next_ref(item_timeout)
+                                if next_ref is not None
+                                else next(gen)
+                            )
+                        except StopIteration:
+                            return
+                        except GetTimeoutError as te:
+                            raise RequestTimeoutError(
+                                handle.deployment_name,
+                                self._method,
+                                item_timeout,
+                            ) from te
+                        try:
+                            item = ray_tpu_torch.get(ref, timeout=item_timeout)
+                        except GetTimeoutError as te:
+                            if isinstance(te, RequestTimeoutError):
+                                raise
+                            raise RequestTimeoutError(
+                                handle.deployment_name,
+                                self._method,
+                                item_timeout,
+                            ) from te
+                        got_any = True
+                        yield item
+                finally:
+                    done()
+            except GeneratorExit:
+                raise  # consumer stopped early
+            except RequestTimeoutError:
+                raise
+            except BaseException as e:  # noqa: BLE001
+                retriable = _classify_failure(e)
+                if retriable is None:
+                    raise  # application error: not a replica-death failure
+                handle._note_replica_gone(rid)
+                if got_any or not retriable:
+                    raise ReplicaDiedError(
+                        deployment=handle.deployment_name,
+                        app=handle.app_name,
+                        method=self._method,
+                        replica_id=rid,
+                        started=True if got_any else _started_of(e),
+                        reason=str(e),
+                    ) from e
+                if attempts >= handle._retry_budget(e):
+                    raise ReplicaDiedError(
+                        deployment=handle.deployment_name,
+                        app=handle.app_name,
+                        method=self._method,
+                        replica_id=rid,
+                        started=False,
+                        reason=f"retry budget exhausted: {e}",
+                    ) from e
+                attempts += 1
+                handle._backoff_and_refresh(attempts)
+                _record_counter("retries", handle.deployment_name)
+                from ray_tpu_torch.util import tracing as _tracing
+
+                with _tracing.scope(self._trace_ctx):
+                    _trace_event(
+                        "serve:retry",
+                        deployment=handle.deployment_name,
+                        method=self._method,
+                        failed_replica=rid,
+                        attempt=attempts,
+                        reason=type(e).__name__,
+                    )
+
+    def _iter_legacy(self):
+        try:
+            for ref in self._gen:
+                yield ray_tpu_torch.get(ref, timeout=300)
+        finally:
+            if not self._settled:
+                self._settled = True
+                if self._on_done:
+                    self._on_done()
+
+
+def _classify_failure(e: BaseException) -> Optional[bool]:
+    """None: not a replica-death/drain failure (application error — do not
+    touch). True: provably unstarted, safe to retry. False: replica died
+    under (possibly) started work."""
+    if isinstance(e, ReplicaDrainingError):
+        return True
+    if isinstance(e, ActorDiedError):
+        return getattr(e, "task_started", None) is False
+    return None
+
+
+def _started_of(e: BaseException) -> Optional[bool]:
+    if isinstance(e, ActorDiedError):
+        return getattr(e, "task_started", None)
+    return None
+
+
+class _MethodCaller:
+    def __init__(self, handle: "DeploymentHandle", method: str):
+        self._handle = handle
+        self._method = method
+
+    def remote(self, *args, **kwargs):
+        return self._handle._call(self._method, args, kwargs)
+
+
+class DeploymentHandle:
+    def __init__(
+        self,
+        deployment_name: str,
+        app_name: str,
+        replicas: List[Any],
+        stream: bool = False,
+        multiplexed_model_id: str = "",
+        max_retries: Optional[int] = None,
+        stream_item_timeout_s: float = 300.0,
+        shed_enabled: bool = True,
+        config: Optional[dict] = None,
+    ):
+        self.deployment_name = deployment_name
+        self.app_name = app_name
+        self._replicas = list(replicas)
+        self._outstanding: Dict[int, int] = {i: 0 for i in range(len(replicas))}
+        # controller-probed queue depths by replica id (staleness <= the
+        # reconcile period): lets pow-2 see load from OTHER handles too,
+        # parity with the replica probes of pow_2_scheduler.py:49
+        self._probed_depths: Dict[str, int] = {}
+        self._lock = threading.Lock()
+        self._stream = stream
+        self._model_id = multiplexed_model_id
+        # model id -> replica index this handle last routed it to
+        self._model_affinity: Dict[str, int] = {}
+        self._last_refresh = time.monotonic()
+        # resilience state
+        self._cfg = dict(_DEFAULT_CFG)
+        if config:
+            self._cfg.update({k: v for k, v in config.items() if v is not None})
+        self._max_retries = max_retries
+        self._stream_item_timeout_s = stream_item_timeout_s
+        self._shed_enabled = shed_enabled
+        # replica id hex -> monotonic ts: dead/draining replicas excluded
+        # from picks until the controller's handle-info drops them
+        self._excluded: Dict[str, float] = {}
+        self._health = "HEALTHY"
+        self._next_probe_at = 0.0  # half-open probe gate while shedding
+        self._last_shed_event = 0.0
+        self._retry_count = 0  # introspection/tests: failover retries taken
+        self._shed_count = 0
+
+    # -- replica-set maintenance ------------------------------------------
+
+    def _update_replicas(self, replicas: List[Any]):
+        with self._lock:
+            self._replicas = list(replicas)
+            self._outstanding = {i: 0 for i in range(len(replicas))}
+            self._model_affinity.clear()
+            live = {r._actor_id.hex() for r in self._replicas}
+            for rid in [x for x in self._excluded if x not in live]:
+                del self._excluded[rid]
+
+    def _maybe_refresh(self, force: bool = False):
+        """Pick up autoscaling/failover changes: re-fetch the replica list
+        from the controller every couple of seconds (immediately when a
+        failover forces it)."""
+        now = time.monotonic()
+        if not force and now - self._last_refresh < _REFRESH_PERIOD_S:
+            return
+        self._last_refresh = now
+        try:
+            from ray_tpu_torch.serve.api import _CONTROLLER_NAME
+
+            controller = ray_tpu_torch.get_actor(_CONTROLLER_NAME)
+            info = ray_tpu_torch.get(
+                controller.get_handle_info.remote(self.app_name, self.deployment_name),
+                timeout=10,
+            )
+            if info is not None:
+                new_replicas = info["replicas"]
+                new_ids = [r._actor_id for r in new_replicas]
+                cur_ids = [r._actor_id for r in self._replicas]
+                if new_ids != cur_ids:
+                    self._update_replicas(new_replicas)
+                with self._lock:
+                    if info.get("depths"):
+                        self._probed_depths = dict(info["depths"])
+                    cfg = info.get("config")
+                    if cfg:
+                        self._cfg.update(
+                            {k: v for k, v in cfg.items() if v is not None}
+                        )
+                    self._health = info.get("health", self._health)
+        except Exception:
+            pass
+
+    def _note_replica_gone(self, rid: str) -> None:
+        """Exclude a dead/draining replica from picks and force the next
+        call to refresh from the controller."""
+        now = time.monotonic()
+        with self._lock:
+            self._excluded[rid] = now
+            for old in [
+                r for r, ts in self._excluded.items() if now - ts > _EXCLUDE_TTL_S
+            ]:
+                del self._excluded[old]
+        self._last_refresh = 0.0
+
+    # -- routing -----------------------------------------------------------
+
+    def _pick(self, model_id: str) -> int:
+        with self._lock:
+            n = len(self._replicas)
+            if n == 0:
+                raise RuntimeError(
+                    f"deployment {self.deployment_name} has no replicas"
+                )
+            eligible = [
+                k
+                for k in range(n)
+                if self._replicas[k]._actor_id.hex() not in self._excluded
+            ]
+            if not eligible:
+                # every known replica is excluded (e.g. mass churn between
+                # refreshes): fall back to the full set rather than brick —
+                # the bounded failover budget still caps the damage
+                eligible = list(range(n))
+            # multiplex-aware: stick with the replica that already loaded
+            # this model unless it is heavily loaded (pow-2 fallback)
+            if model_id:
+                idx = self._model_affinity.get(model_id)
+                if (
+                    idx is not None
+                    and idx in eligible
+                    and self._outstanding.get(idx, 0) < 8
+                ):
+                    return idx
+            if len(eligible) == 1:
+                idx = eligible[0]
+            else:
+                i, j = random.sample(eligible, 2)
+
+                def score(k: int) -> int:
+                    # local in-flight plus the controller-probed global queue
+                    # depth (load from other handles/proxies)
+                    rid = self._replicas[k]._actor_id.hex()
+                    return self._outstanding.get(k, 0) + self._probed_depths.get(
+                        rid, 0
+                    )
+
+                idx = i if score(i) <= score(j) else j
+            if model_id:
+                self._model_affinity[model_id] = idx
+            return idx
+
+    # -- admission control (load shedding) --------------------------------
+
+    def _check_admission(self, extra_load: int = 0) -> None:
+        """Shed when queued work exceeds the deployment's bound; raises
+        DeploymentOverloadedError (the proxy maps it to 503+Retry-After)."""
+        if not self._shed_enabled:
+            return
+        with self._lock:
+            n = len(self._replicas)
+            if n == 0:
+                return
+            max_replicas = self._cfg.get("max_replicas")
+            n_eff = max(n, int(max_replicas)) if max_replicas else n
+            cap = max(
+                1,
+                int(
+                    n_eff
+                    * float(self._cfg["max_ongoing"])
+                    * float(self._cfg["shed_queue_factor"])
+                ),
+            )
+            local = sum(self._outstanding.values()) + extra_load
+            probed = sum(self._probed_depths.values())
+            load = max(local, probed)
+            if load < cap:
+                return
+            retry_after = float(self._cfg["shed_retry_after_s"])
+            now = time.monotonic()
+            if local < cap and now >= self._next_probe_at:
+                # trigger is controller-probed (possibly stale) depth, not
+                # live local load: half-open — admit one probe request per
+                # retry_after window so a freed deployment closes the
+                # breaker without waiting for the next depth refresh
+                self._next_probe_at = now + retry_after
+                return
+            self._shed_count += 1
+            emit_event = now - self._last_shed_event > _SHED_EVENT_PERIOD_S
+            if emit_event:
+                self._last_shed_event = now
+        _record_counter("shed", self.deployment_name)
+        _trace_event(
+            "serve:shed",
+            deployment=self.deployment_name,
+            load=load,
+            capacity=cap,
+        )
+        if emit_event:
+            try:
+                from ray_tpu_torch._private.telemetry import record_cluster_event
+
+                record_cluster_event(
+                    "SERVE_SHED",
+                    f"deployment {self.deployment_name} shedding load "
+                    f"(load {load} >= capacity {cap})",
+                    severity="WARNING",
+                    source="SERVE",
+                    deployment=self.deployment_name,
+                    app=self.app_name,
+                    load=load,
+                    capacity=cap,
+                )
+            except Exception:
+                pass
+        raise DeploymentOverloadedError(
+            self.deployment_name, retry_after, load, cap
+        )
+
+    # -- dispatch + failover ----------------------------------------------
+
+    def _dispatch(self, method: str, args, kwargs, streaming: bool = False):
+        """One dispatch attempt; returns (ref_or_gen, replica_id, done)."""
+        idx = self._pick(self._model_id)
+        with self._lock:
+            # bind the generation's counter dict: a replica-list refresh swaps
+            # it out, and late done() callbacks must decrement the dict they
+            # incremented (not drive the fresh one negative)
+            out_map = self._outstanding
+            out_map[idx] = out_map.get(idx, 0) + 1
+            replica = self._replicas[idx]
+
+        def done():
+            with self._lock:
+                if idx in out_map:
+                    out_map[idx] -= 1
+
+        rid = replica._actor_id.hex()
+        if streaming:
+            gen = replica.handle_request_streaming.options(
+                num_returns="streaming"
+            ).remote(method, list(args), dict(kwargs), self._model_id)
+            return gen, rid, done
+        ref = replica.handle_request.remote(
+            method, list(args), dict(kwargs), self._model_id
+        )
+        return ref, rid, done
+
+    def _retry_budget(self, error: Optional[BaseException] = None) -> int:
+        base = (
+            int(self._max_retries)
+            if self._max_retries is not None
+            else int(self._cfg["request_retries"])
+        )
+        if isinstance(error, ReplicaDrainingError):
+            # drain rejections are provably unstarted and redeploy storms
+            # are transient (every old replica can reject until the handle's
+            # forced refresh lands on a slow host): extra headroom is safe
+            return base + 4
+        return base
+
+    def _backoff_and_refresh(self, attempt: int) -> None:
+        time.sleep(min(_RETRY_BACKOFF_S * (2 ** max(0, attempt - 1)),
+                       _RETRY_BACKOFF_MAX_S))
+        self._maybe_refresh(force=True)
+
+    def _failover(self, method: str, args, kwargs, rid: str,
+                  error: BaseException, attempts_used: int):
+        """Handle a dead/draining-replica failure of one unary dispatch:
+        returns a replacement (ref, replica_id, done) or raises the typed
+        terminal error. Only called for failures _classify_failure
+        recognized."""
+        retriable = _classify_failure(error)
+        self._note_replica_gone(rid)
+        if not retriable:
+            raise ReplicaDiedError(
+                deployment=self.deployment_name,
+                app=self.app_name,
+                method=method,
+                replica_id=rid,
+                started=_started_of(error),
+                reason=str(error),
+            ) from error
+        if attempts_used >= self._retry_budget(error):
+            raise ReplicaDiedError(
+                deployment=self.deployment_name,
+                app=self.app_name,
+                method=method,
+                replica_id=rid,
+                started=False,
+                reason=f"retry budget exhausted: {error}",
+            ) from error
+        self._backoff_and_refresh(attempts_used + 1)
+        with self._lock:
+            self._retry_count += 1
+        _record_counter("retries", self.deployment_name)
+        _trace_event(
+            "serve:retry",
+            deployment=self.deployment_name,
+            method=method,
+            failed_replica=rid,
+            attempt=attempts_used + 1,
+            reason=type(error).__name__,
+        )
+        return self._dispatch(method, args, kwargs)
+
+    def _call(self, method: str, args, kwargs):
+        from ray_tpu_torch.util import tracing
+
+        self._maybe_refresh()
+        # tracing entry point: a driver-side serve call with no active
+        # context roots a fresh trace (proxy requests arrive with one)
+        ctx = tracing.get_current_context()
+        if ctx is None and tracing.tracing_enabled():
+            ctx = tracing.new_root()
+        with tracing.scope(ctx):
+            self._check_admission()
+            if self._stream:
+                return DeploymentResponseGenerator(
+                    handle=self, method=method, args=args, kwargs=kwargs,
+                    trace_ctx=ctx,
+                )
+            from ray_tpu_torch._private.profiling import traced_section
+
+            with traced_section(
+                f"serve:handle:{self.deployment_name}.{method}",
+                {"deployment": self.deployment_name, "app": self.app_name},
+            ) as sx:
+                ref, rid, done = self._dispatch(method, args, kwargs)
+                sx["replica_id"] = rid
+        resp = DeploymentResponse(
+            ref, on_done=done, call=(self, method, args, kwargs, rid)
+        )
+        resp._trace_ctx = ctx
+        return resp
+
+    def remote(self, *args, **kwargs):
+        return self._call("__call__", args, kwargs)
+
+    def options(
+        self,
+        *,
+        stream: Optional[bool] = None,
+        multiplexed_model_id: Optional[str] = None,
+        max_retries: Optional[int] = None,
+        stream_item_timeout_s: Optional[float] = None,
+        shed_enabled: Optional[bool] = None,
+        **unknown,
+    ) -> "DeploymentHandle":
+        for key in unknown:
+            # warn once per unknown key process-wide (silently dropping a
+            # typo'd kwarg hid real misconfiguration)
+            if key not in _warned_option_keys:
+                _warned_option_keys.add(key)
+                warnings.warn(
+                    f"DeploymentHandle.options() ignoring unknown option "
+                    f"{key!r}",
+                    stacklevel=2,
+                )
+        return DeploymentHandle(
+            self.deployment_name,
+            self.app_name,
+            self._replicas,
+            stream=self._stream if stream is None else stream,
+            multiplexed_model_id=(
+                self._model_id if multiplexed_model_id is None else multiplexed_model_id
+            ),
+            max_retries=self._max_retries if max_retries is None else max_retries,
+            stream_item_timeout_s=(
+                self._stream_item_timeout_s
+                if stream_item_timeout_s is None
+                else stream_item_timeout_s
+            ),
+            shed_enabled=self._shed_enabled if shed_enabled is None else shed_enabled,
+            config=dict(self._cfg),
+        )
+
+    def __getattr__(self, name: str):
+        if name.startswith("_"):
+            raise AttributeError(name)
+        return _MethodCaller(self, name)
+
+    def __reduce__(self):
+        return (
+            _rebuild_handle,
+            (
+                self.deployment_name,
+                self.app_name,
+                self._replicas,
+                self._stream,
+                self._model_id,
+                self._max_retries,
+                self._stream_item_timeout_s,
+                self._shed_enabled,
+                dict(self._cfg),
+            ),
+        )
+
+
+def _rebuild_handle(deployment_name, app_name, replicas, stream, model_id,
+                    max_retries, stream_item_timeout_s, shed_enabled, cfg):
+    return DeploymentHandle(
+        deployment_name,
+        app_name,
+        replicas,
+        stream=stream,
+        multiplexed_model_id=model_id,
+        max_retries=max_retries,
+        stream_item_timeout_s=stream_item_timeout_s,
+        shed_enabled=shed_enabled,
+        config=cfg,
+    )

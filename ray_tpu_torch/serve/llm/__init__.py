@@ -1,7 +1,7 @@
 """LLM serving plane of the port: paged KV cache, continuous batching and the
 deployment class."""
 
-from ray_tpu_torch.serve.llm.deployment import TINY_MODEL, LLMServer
+from ray_tpu_torch.serve.llm.deployment import TINY_MODEL, LLMServer, llm_deployment
 from ray_tpu_torch.serve.llm.engine import EngineConfig, InferenceEngine, TokenStream
 from ray_tpu_torch.serve.llm.kv_cache import (
     NULL_BLOCK,
@@ -20,4 +20,5 @@ __all__ = [
     "NULL_BLOCK",
     "TINY_MODEL",
     "TokenStream",
+    "llm_deployment",
 ]

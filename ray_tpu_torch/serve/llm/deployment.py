@@ -7,8 +7,11 @@ first token. Weights come from ``weight_seed`` through a seeded
 ``torch.Generator`` on the replica's device (their values differ from
 JAX's for the same seed), or from ``params_loader``.
 
-``llm_deployment``, the reference's ``serve.run`` binding, is not ported:
-it needs ``ray_tpu.serve``, which the port does not import.
+``llm_deployment`` binds ``LLMServer`` into the port's serve library
+(``ray_tpu_torch.serve``): ``serve.run(llm_deployment(...))``. A replica on
+the card asks for it with ``ray_actor_options={"num_gpus": 1}``; without the
+resource a ``device="cuda"`` replica raises in its constructor, and
+``serve.run`` with it.
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ from ray_tpu_torch._device import resolve_device
 from ray_tpu_torch.models.transformer import TransformerConfig, init_params
 from ray_tpu_torch.serve.llm.engine import EngineConfig, InferenceEngine
 
-__all__ = ["LLMServer", "TINY_MODEL"]
+__all__ = ["LLMServer", "TINY_MODEL", "llm_deployment"]
 
 # small-but-real geometry (GQA + swiglu exercised) usable on the CPU: the
 # reference's default deployment
@@ -145,3 +148,30 @@ class LLMServer:
         engine = getattr(self, "_engine", None)
         if engine is not None:
             engine.shutdown(timeout_s=1.0)
+
+
+def llm_deployment(
+    model_cfg: Optional[Dict] = None,
+    engine_cfg: Optional[Dict] = None,
+    *,
+    deployment_name: str = "llm",
+    device: str = "cuda",
+    **serve_options,
+):
+    """Bound LLM application: ``serve.run(llm_deployment(...))``.
+
+    ``device`` reaches each replica's ``LLMServer`` (whose weights come
+    from seed 0, as in the reference); ``serve_options`` pass straight
+    through to ``@serve.deployment`` (num_replicas, max_ongoing_requests,
+    ray_actor_options, ...).
+    ``max_ongoing_requests`` defaults to the engine's admission width
+    (decode slots + waiting bound) so the replica gate and the KV-aware
+    admission agree about capacity.
+    """
+    from ray_tpu_torch import serve
+
+    ecfg = _resolve_engine_cfg(engine_cfg)
+    serve_options.setdefault("name", deployment_name)
+    serve_options.setdefault("max_ongoing_requests", ecfg.max_batch + ecfg.max_waiting)
+    dep = serve.deployment(LLMServer, **serve_options)
+    return dep.bind(model_cfg, engine_cfg, deployment=deployment_name, device=device)

@@ -23,8 +23,10 @@ The fixed decode shape also buys schedule-invariance: a sequence's tokens
 depend only on its own prompt and (seed, step) generator, never on which
 neighbours share the batch.
 
-Not ported yet (they live in ``ray_tpu`` and the port imports nothing of
-it): the ``ray_tpu_llm_*`` metrics and the memplane KV provider.
+Telemetry: the ``ray_tpu_torch_llm_*`` gauges, counters and decode-step
+histogram per deployment, and the memplane's ``ray_tpu_torch_kv_*`` gauges
+(the engine registers its ``kv_stats`` as a KV provider and records each
+occupancy edge).
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ from __future__ import annotations
 import dataclasses
 import itertools
 import queue
+import sys
 import threading
 import time
 from typing import Any, Dict, List, Optional, Sequence
@@ -40,9 +43,51 @@ import numpy as np
 import torch
 
 from ray_tpu_torch._device import resolve_device
+from ray_tpu_torch._private import memplane
 from ray_tpu_torch.models import generation as G
 from ray_tpu_torch.serve.exceptions import DeploymentOverloadedError
 from ray_tpu_torch.serve.llm.kv_cache import BlockAllocator, BlockTable
+
+# engine telemetry (lazy singletons like the replica's): per-deployment
+# occupancy of the two continuous-batching queues plus token/shed counters
+_metrics: dict = {}
+
+
+def _engine_metrics() -> dict:
+    if not _metrics:
+        from ray_tpu_torch.util.metrics import Counter, Gauge, Histogram
+
+        _metrics["running"] = Gauge(
+            "ray_tpu_torch_llm_running_seqs",
+            "sequences currently holding a decode-batch slot (in-flight "
+            "batching occupancy) per LLM deployment",
+            tag_keys=("deployment",),
+        )
+        _metrics["waiting"] = Gauge(
+            "ray_tpu_torch_llm_waiting_requests",
+            "admitted requests waiting for a decode slot per LLM "
+            "deployment (admission-bounded; beyond it requests shed)",
+            tag_keys=("deployment",),
+        )
+        _metrics["tokens"] = Counter(
+            "ray_tpu_torch_llm_tokens_total",
+            "tokens processed by the engine per deployment and phase "
+            "(prefill = prompt tokens cached, decode = tokens generated)",
+            tag_keys=("deployment", "phase"),
+        )
+        _metrics["shed"] = Counter(
+            "ray_tpu_torch_llm_shed_total",
+            "requests shed by KV-aware admission (free-block reservation "
+            "or waiting-queue bound exceeded) per LLM deployment",
+            tag_keys=("deployment",),
+        )
+        _metrics["step"] = Histogram(
+            "ray_tpu_torch_llm_decode_step_ms",
+            "wall time of one continuous-batching decode step (all active "
+            "slots advance one token) per LLM deployment",
+            tag_keys=("deployment",),
+        )
+    return _metrics
 
 __all__ = ["EngineConfig", "InferenceEngine", "TokenStream"]
 
@@ -194,6 +239,7 @@ class InferenceEngine:
         self.max_context = min(
             ecfg.max_blocks_per_seq * ecfg.block_size, model_cfg.max_seq_len
         )
+        memplane.register_kv_provider(self.deployment, self.kv_stats)
         if start:
             self.start()
 
@@ -225,6 +271,8 @@ class InferenceEngine:
                     self._committed_blocks -= run.req.need_blocks
                     run.req.out._fail(err)
                     self._slots[i] = None
+        if not sys.is_finalizing():  # a __del__ at exit: imports are gone
+            self._update_gauges()
 
     # -- admission ------------------------------------------------------
 
@@ -270,6 +318,7 @@ class InferenceEngine:
                 or self._committed_blocks + need > usable
             )
             if overloaded:
+                self._count("shed")
                 raise DeploymentOverloadedError(
                     deployment=self.deployment,
                     retry_after_s=self.cfg.retry_after_s,
@@ -294,12 +343,14 @@ class InferenceEngine:
             self._waiting.append((req, stream))
             self._streams[req.id] = stream
             self._cv.notify_all()
+        self._update_gauges()
         return stream
 
     # -- stats ----------------------------------------------------------
 
     def kv_stats(self) -> Dict[str, Any]:
-        """Host-side KV/batching occupancy snapshot."""
+        """Host-side KV/batching occupancy snapshot (also the memplane
+        gauge source through the registered provider)."""
         usable = self._alloc.num_usable
         free = self._alloc.num_free
         with self._cv:
@@ -322,6 +373,19 @@ class InferenceEngine:
             "bytes_per_block": bytes_per_block,
         }
 
+    def _update_gauges(self) -> None:
+        """Refresh the queue gauges and the memplane's KV gauges from one
+        ``kv_stats`` snapshot."""
+        stats = self.kv_stats()
+        m = _engine_metrics()
+        tags = {"deployment": self.deployment}
+        m["running"].set(float(stats["running"]), tags=tags)
+        m["waiting"].set(float(stats["waiting"]), tags=tags)
+        memplane.record_kv_occupancy(stats)
+
+    def _count(self, name: str, n: int = 1, **tags) -> None:
+        _engine_metrics()[name].inc(n, tags={"deployment": self.deployment, **tags})
+
     # -- the loop -------------------------------------------------------
 
     def _has_active(self) -> bool:
@@ -330,8 +394,8 @@ class InferenceEngine:
     def _loop(self) -> None:
         """One-step-pipelined scheduler: step k+1 is dispatched to the
         device BEFORE step k's tokens are emitted to consumers, so queue
-        wakeups and next-iteration admissions overlap device compute
-        instead of extending the step critical path."""
+        wakeups, gauge updates and next-iteration admissions overlap
+        device compute instead of extending the step critical path."""
         inflight = None
         while True:
             admits: List[tuple] = []
@@ -366,6 +430,8 @@ class InferenceEngine:
                 stream._emit(tok)
             for _slot_idx, run, reason in finishes:
                 run.req.out._finish(reason)
+            if admits or emissions or finishes:
+                self._update_gauges()
 
     # -- phases ---------------------------------------------------------
 
@@ -447,6 +513,8 @@ class InferenceEngine:
                 self._streams.pop(req.id, None)
             stream._fail(e)
             return
+        self._count("tokens", len(req.prompt), phase="prefill")
+        self._count("tokens", phase="decode")
         run = _Running(req, table, first)
         self._slots[slot_idx] = run
         stream._emit(first)  # TTFT: admission -> first token
@@ -470,6 +538,7 @@ class InferenceEngine:
         ``_retire_step``. A batch where every sequence decodes greedily
         uses the fused-argmax step (B ints cross back to the host, not
         B x vocab logits)."""
+        t0 = time.perf_counter()
         b = self.cfg.max_batch
         mb = self.cfg.max_blocks_per_seq
         tokens = np.zeros((b,), np.int32)
@@ -507,13 +576,13 @@ class InferenceEngine:
             for i in list(live):
                 self._fail_slot(i, e)
             return None
-        return (live, out, fused)
+        return (live, out, fused, t0)
 
     def _retire_step(self, inflight) -> tuple:
         """Block on the in-flight step's result and fold it into the run
         states. Returns ``(emissions, finishes)`` for the loop to deliver
         AFTER it dispatches the next step."""
-        live, out, fused = inflight
+        live, out, fused, t0 = inflight
         try:
             host_out = out.cpu()  # blocks until the device step lands
         except BaseException as e:  # noqa: BLE001
@@ -534,4 +603,8 @@ class InferenceEngine:
             emissions.append((run.req.out, tok))
             if self._is_done(run, tok):
                 finishes.append((i, run, self._done_reason(run, tok)))
+        self._count("tokens", len(emissions), phase="decode")
+        _engine_metrics()["step"].observe(
+            (time.perf_counter() - t0) * 1e3, tags={"deployment": self.deployment}
+        )
         return emissions, finishes
