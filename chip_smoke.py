@@ -70,6 +70,21 @@ through the proxy (on an ephemeral port); the replica's own process counts
 32 flash launches per prefill and 32 paged launches per decode step; the
 solo tokens are held to the driver's as in runtime_gpu; after
 ``serve.delete`` a pending ``num_gpus=1`` task gets the card.
+Phase ``dag_pipeline`` (while this process holds Llama-2-7B):
+``dag.compile_torch_pipeline`` over ``forward_stages`` (embed, 32 blocks,
+norm and unembed) captures one CUDA graph per prompt length (2,048 and 128
+tokens); its logits must equal eager ``forward``'s bit for bit, the capture
+must hold 32 flash launches and replays none. The data library
+(``ray_tpu_torch.data``): phase ``data_train_gpu``, the slice's main path,
+trains GPT-J-6B at full size through ``DataParallelTrainer(datasets=...)``
+in a ``use_gpu`` worker fed by ``train.get_dataset_shard("train")
+.iter_torch_batches(batch_size=1)`` (pinned staging, the iterator's copy
+stream), held to phase_train's losses, 56 / 28 flash launches per step
+counted in the worker, batches on the card equal to the dataset's rows and
+the step plane's host_to_device stage non-zero every step; phase
+``data_feed_vit`` feeds 4,096 images made by ``map_batches`` tasks through
+``iter_torch_batches(batch_size=256)`` into ViT-L/16's forward, every batch
+and its logits equal to the same images put on the card in one piece.
 Every phase prints one JSON object; any failure or missed tolerance raises
 (non-zero exit). The last two lines are the per-kernel summary and the
 result line read by automation:
@@ -953,7 +968,8 @@ def phase_vit(smi):
         raise AssertionError(f"vit steps launched {step_launches}")
     if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
         raise AssertionError(f"vit: loss did not fall on one fixed batch: {losses}")
-    return {"forward": fwd_launches, "gradient": bwd_launches, "sgd_steps": step_launches}
+    return {"forward": fwd_launches, "gradient": bwd_launches, "sgd_steps": step_launches,
+            "forward_images_per_s": fwd["images_per_s"]}
 
 
 def synthetic_mnist():
@@ -1822,6 +1838,51 @@ def _train_gpu_loop(config):
         out["report_ms"].append((time.perf_counter() - t0) * 1e3)
 
 
+def _split_inputs_targets(batch):
+    """map_batches task of phase data_train_gpu: a row of tokens -> the
+    step's inputs and its targets (the row rolled by one, as phase_train)."""
+    import numpy as np
+
+    return {"inputs": batch["tokens"], "targets": np.roll(batch["tokens"], -1, axis=1)}
+
+
+def _data_train_loop(config):
+    """phase_train's GPT-J-6B step fed by the trainer's dataset through
+    ``train.get_dataset_shard("train").iter_torch_batches(batch_size=1)``
+    on the card (the default device): one ``train.report`` per batch with
+    the loss, the step's CUDA-event time, its flash launches and whether
+    the batch on the card equals the dataset's row bit for bit."""
+    import numpy as np
+
+    from ray_tpu_torch import train
+    from ray_tpu_torch.kernels.flash_attention import flash_attention, flash_attention_backward
+    from ray_tpu_torch.models.transformer import GPTJ_6B
+    from ray_tpu_torch.parallel.spmd import build_lm_train_step
+
+    bundle = build_lm_train_step(GPTJ_6B, learning_rate=config["lr"])
+    state = bundle.init_state(config["seed"])
+    want_in = torch.tensor(config["tokens"])
+    want_tgt = torch.roll(want_in, -1, 1)
+    out = dict(losses=[], step_ms=[], launches_per_step=[], rows_equal=[], batch=[])
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    for batch in train.get_dataset_shard("train").iter_torch_batches(batch_size=1):
+        tok, tgt = batch["inputs"], batch["targets"]
+        before = (flash_attention.launches, flash_attention_backward.launches)
+        start.record()
+        state, metrics = bundle.step_fn(state, tok, tgt)
+        end.record()
+        torch.cuda.synchronize()
+        out["step_ms"].append(start.elapsed_time(end))
+        out["losses"].append(metrics["loss"].item())
+        out["launches_per_step"].append([flash_attention.launches - before[0],
+                                         flash_attention_backward.launches - before[1]])
+        out["rows_equal"].append(torch.equal(tok.cpu(), want_in) and torch.equal(tgt.cpu(), want_tgt))
+        out["batch"].append({k: [str(v.device), str(v.dtype), list(v.shape)]
+                             for k, v in batch.items()})
+        train.report(dict(out))
+
+
 def _train_restart_loop(config):
     """The scaled-down GPT-J through the trainer: a checkpoint (parameters,
     AdamW moments, progress) at ``checkpoint_at``, an injected failure after
@@ -1888,10 +1949,214 @@ def _read_ledger(path):
     return out
 
 
-def phase_train_lib(smi, single: dict) -> dict:
-    """The Train library and RL's learner group on the card, on the port's
-    runtime: phases train_gpu, train_restart and rl_learner_group. Returns
-    the flash launches each training phase made in its workers."""
+def _timeline_steps(run: str, steps: int, timeout_s: float = 30.0) -> list:
+    """Rank 0's step records of ``run`` from the step plane, once all
+    ``steps`` have landed (the last drains through the telemetry ring)."""
+    import ray_tpu_torch
+
+    deadline = time.monotonic() + timeout_s
+    while True:
+        tl = ray_tpu_torch.train_timeline(run).to_dict()
+        recs = [st["ranks"]["0"] for st in tl.get("steps", []) if "0" in st["ranks"]]
+        if len(recs) >= steps or time.monotonic() > deadline:
+            return sorted(recs, key=lambda rec: rec["step"])
+        time.sleep(0.2)
+
+
+def phase_data_train_gpu(smi, single: dict, storage: str, train_gpu_step_ms: list) -> list:
+    """The slice's main path: GPT-J-6B at full size trained by
+    ``DataParallelTrainer(datasets=...)`` in a ``use_gpu`` worker, fed by
+    ``ray_tpu_torch.data.from_numpy`` of phase_train's fixed batch (3 rows)
+    through a ``map_batches`` task that splits inputs and targets, and
+    ``iter_torch_batches`` on the card. Returns the worker's flash launches
+    (forward, backward)."""
+    import numpy as np
+
+    from ray_tpu_torch import data
+    from ray_tpu_torch.models.transformer import GPTJ_6B
+    from ray_tpu_torch.train import DataParallelTrainer, RunConfig, ScalingConfig
+
+    steps = 3
+    tokens = np.random.default_rng(0).integers(0, GPTJ_6B.vocab_size - 1, (1, 2048),
+                                               dtype=np.int32)
+    ds = data.from_numpy(np.repeat(tokens, steps, axis=0), column="tokens",
+                         num_blocks=steps).map_batches(_split_inputs_targets)
+    t0 = time.perf_counter()
+    result = DataParallelTrainer(
+        _data_train_loop, train_loop_config={"lr": 1e-4, "seed": 0, "tokens": tokens},
+        scaling_config=ScalingConfig(num_workers=1, use_gpu=True),
+        run_config=RunConfig(storage_path=storage, name="data_train_gpu"),
+        datasets={"train": ds},
+    ).fit()
+    fit_s = time.perf_counter() - t0
+    if result.error is not None:
+        raise AssertionError(f"data_train_gpu: the trainer failed: {result.error!r}")
+    m = result.metrics
+    recs = _timeline_steps("data_train_gpu", steps)
+    stages = [rec["stages"] for rec in recs]
+    want = single["losses"][:steps]
+    rel = [abs(a - b) / abs(b) for a, b in zip(m["losses"], want)]
+    per_step = m["launches_per_step"]
+    row = dict(config="GPTJ_6B", tokens=[1, 2048], steps=steps, card=smi, fit_s=fit_s,
+               dataset="from_numpy(3 x 2048 int32, 3 blocks).map_batches(split)",
+               batches=m["batch"], rows_equal=m["rows_equal"], losses=m["losses"],
+               phase_train_losses=want, loss_rel_diff=rel,
+               tol=dict(loss_rtol=TRAIN_GPU_LOSS_RTOL), step_ms=m["step_ms"],
+               train_gpu_step_ms=train_gpu_step_ms,
+               phase_train_step_ms=single["step_ms"][:steps], launches_per_step=per_step,
+               step_records=[{k: st.get(k) for k in ("data_wait_ms", "host_to_device_ms",
+                                                      "compute_ms", "other_ms")}
+                             for st in stages],
+               training_iteration=m["training_iteration"])
+    log("data_train_gpu", **row)
+    if m["training_iteration"] != steps or len(m["losses"]) != steps:
+        raise AssertionError(f"data_train_gpu: {m['training_iteration']} reports for {steps} rows")
+    if any(b["inputs"][0] != "cuda:0" or b["inputs"][1] != "torch.int32" for b in m["batch"]):
+        raise AssertionError(f"data_train_gpu: batches {m['batch']}")
+    if not all(m["rows_equal"]):
+        raise AssertionError(f"data_train_gpu: a batch on the card differs from its row: "
+                             f"{m['rows_equal']}")
+    if any(p != [2 * GPTJ_6B.n_layers, GPTJ_6B.n_layers] for p in per_step):
+        raise AssertionError(f"data_train_gpu: flash launches per step {per_step}, want "
+                             f"{[2 * GPTJ_6B.n_layers, GPTJ_6B.n_layers]} each")
+    if any(d > TRAIN_GPU_LOSS_RTOL for d in rel):
+        raise AssertionError(f"data_train_gpu: losses {m['losses']} beyond phase_train's {want}")
+    if len(stages) != steps or any(not st.get("host_to_device_ms", 0) > 0 or "data_wait_ms" not in st
+                                   for st in stages):
+        raise AssertionError(f"data_train_gpu: step records {stages}")
+    return [sum(p[0] for p in per_step), sum(p[1] for p in per_step)]
+
+
+# Phase data_feed_vit: 4,096 seeded uint8 images of 224x224x3 (616 MB) made
+# in 64 blocks by map_batches tasks, fed to ViT-L/16 in batches of 256.
+VIT_FEED_IMAGES, VIT_FEED_BLOCKS, VIT_FEED_BATCH = 4096, 64, 256
+
+
+def _vit_feed_images(block):
+    """map_batches task of phase data_feed_vit: a block of ids -> that many
+    seeded uint8 images (the block's first id seeds the generator)."""
+    import numpy as np
+
+    ids = block["id"]
+    rng = np.random.default_rng([11, int(ids[0])])
+    return {"image": rng.integers(0, 256, (len(ids), 224, 224, 3), dtype=np.uint8)}
+
+
+def _normalize_images(images):
+    """uint8 NHWC -> float32 in [-1, 1], on the images' device."""
+    return images.to(torch.float32) / 127.5 - 1.0
+
+
+def _feed_pass(ds, cfg, params, run: str) -> dict:
+    """One pass of phase data_feed_vit's dataset through the feed into the
+    forward, under a step timer (one step per batch); the fed batches, their
+    logits, the step records, the seconds, the copy stream's stats and the
+    flash launches."""
+    from ray_tpu_torch._private import stepplane
+    from ray_tpu_torch.data import DataIterator
+    from ray_tpu_torch.kernels.flash_attention import flash_attention
+    from ray_tpu_torch.models import vit
+
+    it = DataIterator(ds)
+    timer = stepplane.StepTimer(run, 0, 1)
+    stepplane.activate(timer)
+    out = dict(fed=[], logits=[], recs=[])
+    flash_attention.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        with torch.inference_mode():
+            for i, batch in enumerate(it.iter_torch_batches(batch_size=VIT_FEED_BATCH)):
+                out["fed"].append(batch["image"])
+                out["logits"].append(vit.forward(cfg, params, _normalize_images(batch["image"])))
+                timer.mark_pre_report()
+                out["recs"].append(stepplane.decode_record(timer.finalize_step(i + 1)))
+        torch.cuda.synchronize()
+        out["seconds"] = time.perf_counter() - t0
+    finally:
+        stepplane.activate(None)
+    out["launches"] = flash_attention.launches
+    out["copy"] = it.copy_stats()
+    return out
+
+
+def _feed_row(p: dict) -> dict:
+    recs, copy = p["recs"], p["copy"]
+    wall = sum(r["wall_ms"] for r in recs)
+    return dict(seconds=p["seconds"], images_per_s=len(p["fed"]) * VIT_FEED_BATCH / p["seconds"],
+                launches=p["launches"],
+                stepplane_shares={k: sum(r["stages"][k] for r in recs) / wall
+                                  for k in ("data_wait_ms", "host_to_device_ms", "compute_ms")},
+                step_wall_ms=[r["wall_ms"] for r in recs],
+                data_wait_ms=[r["stages"]["data_wait_ms"] for r in recs],
+                host_to_device_ms=[r["stages"]["host_to_device_ms"] for r in recs],
+                ops=[r["ops"] for r in recs], copy=copy,
+                copy_gb_per_s=copy["bytes"] / copy["copy_ms"] / 1e6 if copy["copy_ms"] else None)
+
+
+def phase_data_feed_vit(smi, forward_images_per_s: float) -> int:
+    """The CUDA feed at an image model's rate: ``ray_tpu_torch.data.range``
+    -> ``map_batches`` image tasks -> ``iter_torch_batches(batch_size=256)``
+    on the card (pinned staging, the iterator's copy stream) -> normalised
+    there -> ViT-L/16's forward (kernel 1 at Hd=64), under a step timer of
+    the step plane (one step per batch). Two passes: the first (``cold``)
+    starts the map tasks' workers and first touches the store's arena; the
+    second (``warm``) is the measured one. Every batch the warm pass fed
+    must equal the same images put on the card in one piece, and its logits
+    those of ``vit.forward`` on them. ``forward_images_per_s`` is phase
+    vit's forward alone at the same batch, printed beside the feed's rate.
+    Returns the warm pass's flash launches."""
+    import numpy as np
+
+    from ray_tpu_torch import data
+    from ray_tpu_torch.models import vit
+
+    cfg = vit.VIT_L_16
+    params = vit.init_params(torch.Generator(device="cuda").manual_seed(7), cfg, device="cuda")
+    per = VIT_FEED_IMAGES // VIT_FEED_BLOCKS
+    ref_host = np.concatenate([_vit_feed_images({"id": np.arange(i, i + per)})["image"]
+                               for i in range(0, VIT_FEED_IMAGES, per)])
+    ref = torch.from_numpy(ref_host).cuda()
+    del ref_host
+    ds = data.range(VIT_FEED_IMAGES, num_blocks=VIT_FEED_BLOCKS).map_batches(_vit_feed_images)
+    cold = _feed_row(_feed_pass(ds, cfg, params, "data_feed_vit_cold"))
+    warm = _feed_pass(ds, cfg, params, "data_feed_vit")
+    fed, logits, launches, copy = warm["fed"], warm["logits"], warm["launches"], warm["copy"]
+    with torch.inference_mode():
+        equal_images = [torch.equal(f, ref[i * VIT_FEED_BATCH:(i + 1) * VIT_FEED_BATCH])
+                        for i, f in enumerate(fed)]
+        want = [vit.forward(cfg, params, _normalize_images(
+            ref[i * VIT_FEED_BATCH:(i + 1) * VIT_FEED_BATCH])) for i in range(len(fed))]
+        equal_logits = [torch.equal(g, w) for g, w in zip(logits, want)]
+        diff = max((g - w).abs().max().item() for g, w in zip(logits, want))
+    # one batch's pinned host-to-device copy with the card otherwise idle
+    pinned = torch.empty(fed[0].shape, dtype=torch.uint8, pin_memory=True)
+    on_card = torch.empty(fed[0].shape, dtype=torch.uint8, device="cuda")
+    bare_ms = cuda_ms(lambda: on_card.copy_(pinned, non_blocking=True), iters=10, warmup=2)
+    log("data_feed_vit", config="VIT_L_16", images=VIT_FEED_IMAGES, blocks=VIT_FEED_BLOCKS,
+        batch=VIT_FEED_BATCH, card=smi, batches=len(fed),
+        phase_vit_images_per_s=forward_images_per_s, warm=_feed_row(warm), cold=cold,
+        idle_pinned_copy=dict(ms=bare_ms, gb_per_s=pinned.numel() / bare_ms / 1e6),
+        images_equal=equal_images, logits_equal=equal_logits, logits_max_abs_diff=diff,
+        tol="bitwise: torch.equal(fed batch, same images on the card) and of their logits")
+    if len(fed) != VIT_FEED_IMAGES // VIT_FEED_BATCH or launches != len(fed) * cfg.n_layers:
+        raise AssertionError(f"data_feed_vit: {len(fed)} batches, {launches} flash launches")
+    if not all(equal_images) or not all(equal_logits):
+        raise AssertionError(f"data_feed_vit: fed images equal {equal_images}, logits equal "
+                             f"{equal_logits} (max abs diff {diff})")
+    if copy["batches"] != len(fed) or copy["bytes"] != VIT_FEED_IMAGES * 224 * 224 * 3:
+        raise AssertionError(f"data_feed_vit: copy stream stats {copy}")
+    del fed, logits, want, ref, params, warm
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_train_lib(smi, single: dict, vit_images_per_s: float) -> dict:
+    """The Train library, the data library and RL's learner group on the
+    card, on the port's runtime: phases train_gpu, data_train_gpu,
+    train_restart, rl_learner_group and data_feed_vit. Returns the flash
+    launches each training phase made in its workers, and the feed's."""
     import os
     import shutil
     import tempfile
@@ -1905,7 +2170,8 @@ def phase_train_lib(smi, single: dict) -> dict:
     storage = tempfile.mkdtemp(prefix="chip_smoke_train_")
     counts = {}
     t0 = time.perf_counter()
-    ray_tpu_torch.init()
+    # the store holds data_feed_vit's whole image set (616 MB) three times over
+    ray_tpu_torch.init(object_store_memory=2 * 1024**3)
     init_ms = (time.perf_counter() - t0) * 1e3
     try:
         # train_gpu: this process holds no model while its worker trains
@@ -1949,6 +2215,8 @@ def phase_train_lib(smi, single: dict) -> dict:
                                  f"{[2 * GPTJ_6B.n_layers, GPTJ_6B.n_layers]} each")
         if any(d > TRAIN_GPU_LOSS_RTOL for d in rel):
             raise AssertionError(f"train_gpu: losses {m['losses']} beyond phase_train's {want}")
+
+        counts["data_train_gpu"] = phase_data_train_gpu(smi, single, storage, m["step_ms"])
 
         # train_restart: a checkpoint, one failure, a resume
         runs = {}
@@ -2003,6 +2271,7 @@ def phase_train_lib(smi, single: dict) -> dict:
                                      f"{run['keys_left']}")
 
         phase_rl_learner_group(smi)
+        counts["data_feed_vit"] = phase_data_feed_vit(smi, vit_images_per_s)
     finally:
         ray_tpu_torch.shutdown()
         shutil.rmtree(storage, ignore_errors=True)
@@ -2157,6 +2426,85 @@ def phase_runtime_driver_serve(params, cfg, ecfg) -> dict:
     # forward over the prompt and the driver's tokens gives each step's
     out["solo_step_logits"] = _step_logits(params, cfg, prompts[1], out["solo_tokens"])
     return out
+
+
+# Prompt lengths of phase dag_pipeline (Llama-2-7B through one CUDA graph).
+DAG_LENGTHS = [2048, 128]
+
+
+def phase_dag_pipeline(params, cfg, smi) -> dict:
+    """``compile_torch_pipeline`` over ``forward_stages`` (embed -> 32
+    blocks -> final norm and unembed) while this process holds Llama-2-7B:
+    one CUDA graph per prompt length. Its logits must equal eager
+    ``forward``'s bit for bit, also for a second prompt of the same length
+    (the graph's static input refilled); the capture must hold one flash
+    launch per layer, and replays must tick no wrapper counter. Returns the
+    flash launches of the compiled calls (warm-up and capture)."""
+    import numpy as np
+
+    from ray_tpu_torch.dag import compile_torch_pipeline
+    from ray_tpu_torch.kernels.flash_attention import flash_attention
+    from ray_tpu_torch.models.transformer import forward, forward_stages
+
+    # a marker at each end of the chain reads the wrapper's counter each
+    # time the chain's Python runs: at the warm-up and at the capture
+    marks = []
+
+    def mark(x):
+        marks.append(flash_attention.launches)
+        return x
+
+    fused = compile_torch_pipeline([mark] + forward_stages(params, cfg) + [mark])
+    rows, launches = {}, 0
+    with torch.inference_mode():
+        for n in DAG_LENGTHS:
+            rng = np.random.default_rng(n)
+            toks = [torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, n))).cuda()
+                    for _ in range(2)]
+            eager = [forward(params, t, cfg) for t in toks]
+            del marks[:]
+            before = flash_attention.launches
+            got = [fused(t) for t in toks]
+            first_calls = flash_attention.launches - before
+            launches += first_calls
+            captured = marks[3] - marks[2] if len(marks) == 4 else None
+            replays = fused.replays
+            before = flash_attention.launches
+            replay_ms = cuda_ms(lambda: fused(toks[0]), iters=10, warmup=2)
+            replay_ticks = flash_attention.launches - before
+            replays = fused.replays - replays
+            eager_ms = cuda_ms(lambda: forward(params, toks[0], cfg), iters=10, warmup=2)
+            diffs = [(g.float() - e.float()).abs().max().item() for g, e in zip(got, eager)]
+            rows[n] = dict(tokens=[1, n], bitwise_equal=[torch.equal(g, e) for g, e in zip(got, eager)],
+                           max_abs_diff=diffs, first_calls_launches=first_calls,
+                           captured_launches=captured, marks=list(marks),
+                           capture_s=fused.capture_s[-1], replays_timed=replays,
+                           replay_launch_ticks=replay_ticks, replay_ms=replay_ms,
+                           eager_ms=eager_ms, replay_over_eager=replay_ms / eager_ms,
+                           finite=bool(torch.isfinite(got[0]).all()))
+            del eager, got
+    log("dag_pipeline", config="LLAMA2_7B", stages=cfg.n_layers + 4, card=smi, lengths=rows,
+        graphs=len(fused.capture_s), replays=fused.replays,
+        tol="bitwise: torch.equal(graph logits, eager forward logits)")
+    for n, row in rows.items():
+        if not all(row["bitwise_equal"]) or not row["finite"]:
+            raise AssertionError(f"dag_pipeline: S={n}: the graph's logits differ from eager "
+                                 f"forward's by {row['max_abs_diff']}")
+        if row["captured_launches"] != cfg.n_layers or row["first_calls_launches"] != 2 * cfg.n_layers:
+            raise AssertionError(f"dag_pipeline: S={n}: {row['captured_launches']} flash launches "
+                                 f"in the capture, {row['first_calls_launches']} in the first "
+                                 f"calls; want {cfg.n_layers} and {2 * cfg.n_layers}")
+        if row["replay_launch_ticks"] or row["replays_timed"] != 12:
+            raise AssertionError(f"dag_pipeline: S={n}: replays ticked the wrapper "
+                                 f"{row['replay_launch_ticks']} times in "
+                                 f"{row['replays_timed']} replays")
+    if len(fused.capture_s) != len(DAG_LENGTHS):
+        raise AssertionError(f"dag_pipeline: {len(fused.capture_s)} captures for "
+                             f"{len(DAG_LENGTHS)} signatures")
+    del fused
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"flash_attention": launches}
 
 
 def _step_logits(params, cfg, prompt, tokens):
@@ -2730,6 +3078,7 @@ def main() -> int:
         phase_first_tokens(params, cfg, prompts, outs)
     dense_counts = phase_dense_generate(params, cfg, serve_row)
     runtime_driver = phase_runtime_driver_serve(params, cfg, ecfg)
+    dag_counts = phase_dag_pipeline(params, cfg, smi)
     log("serve_total", seconds=time.perf_counter() - t_start,
         peak_gib=torch.cuda.max_memory_allocated() / 2**30)
 
@@ -2763,7 +3112,7 @@ def main() -> int:
     # the single-device state is gone with phase_train's frame
     gc.collect()
     torch.cuda.empty_cache()
-    lib_counts = phase_train_lib(smi, train_row)
+    lib_counts = phase_train_lib(smi, train_row, vit_counts["forward_images_per_s"])
     gc.collect()
     torch.cuda.empty_cache()
     mesh1_counts = phase_spmd_mesh1(smi, train_row)
@@ -2798,7 +3147,10 @@ def main() -> int:
                "runtime_gpu_actor": runtime_counts["flash_attention"],
                "serve_gpu_replica": serve_gpu_counts["flash_attention"],
                "train_gpu_worker": lib_counts["train_gpu_worker"][0],
-               "train_restart": lib_counts["train_restart"][0]}),
+               "train_restart": lib_counts["train_restart"][0],
+               "data_train_gpu": lib_counts["data_train_gpu"][0],
+               "data_feed_vit": lib_counts["data_feed_vit"],
+               "dag_pipeline": dag_counts["flash_attention"]}),
         entry("paged_attention", "ray_tpu_torch/csrc/paged_attention.cu", paged_rows[0],
               counts["paged_attention"],
               {"serve": counts["paged_attention"],
@@ -2817,7 +3169,8 @@ def main() -> int:
                "spmd_mesh1": mesh1_counts["flash_attention_backward"],
                "spmd_tensor2": tensor2_counts["flash_attention_backward"],
                "train_gpu_worker": lib_counts["train_gpu_worker"][1],
-               "train_restart": lib_counts["train_restart"][1]}),
+               "train_restart": lib_counts["train_restart"][1],
+               "data_train_gpu": lib_counts["data_train_gpu"][1]}),
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -16,7 +16,13 @@ sharding rules, ring attention, GPipe, expert-parallel MoE). The Train
 library, ``ray_tpu_torch.train``, runs such a step on a gang of worker
 actors (``DataParallelTrainer``, ``TorchTrainer``: ``train.report``,
 checkpoints, restarts; one GPU per worker with ``use_gpu``); pytree
-checkpoints are its ``save_pytree`` and ``load_pytree``. The RL library
+checkpoints are its ``save_pytree`` and ``load_pytree``. The data
+library, ``ray_tpu_torch.data``, feeds it (``datasets=``,
+``train.get_dataset_shard``): lazy streaming datasets on the runtime's
+tasks and actors, whose batches reach the card through pinned memory on
+the iterator's own CUDA stream (``iter_torch_batches``).
+``ray_tpu_torch.dag.compile_torch_pipeline`` captures a chain of pure
+stages as one CUDA graph per input signature. The RL library
 (PPO, IMPALA, APPO, DQN, SAC, BC, MARWIL, CQL, multi-agent PPO; no kernel;
 learner groups of actors for several learner devices) is
 ``ray_tpu_torch.rl``.
@@ -195,3 +201,13 @@ __all__ = [
     "vit",
     "wait",
 ]
+
+
+def __getattr__(name):
+    # lazy subpackage access: `import ray_tpu_torch; ray_tpu_torch.data.range(...)`
+    # works without eagerly importing the libraries (parity: `ray.data` et al)
+    if name in ("data", "train", "serve", "rl", "util"):
+        import importlib
+
+        return importlib.import_module(f"ray_tpu_torch.{name}")
+    raise AttributeError(f"module 'ray_tpu_torch' has no attribute {name!r}")

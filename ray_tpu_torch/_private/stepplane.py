@@ -7,11 +7,12 @@ answers the same question for distributed training steps. Every
 record** per rank, decomposing wall step time into
 
     data_wait (batch-iterator blocking, with per-operator stall attribution;
-               fed by the data library, which the port does not have yet)
-    -> host_to_device (the data iterator's device transfer; likewise)
+               fed by ``ray_tpu_torch.data``'s DataIterator)
+    -> host_to_device (the host side of ``iter_torch_batches``' transfer:
+                       pinned staging and the copies' enqueue)
     -> compile (compile duration events, attributed to the step that
-                triggered them, with a recompilation detector; the port
-                has no compile hook, so nothing feeds it)
+                triggered them, with a recompilation detector; fed by the
+                CUDA-graph captures of ``dag.compile_torch_pipeline``)
     -> compute (the residual of the loop half of the step)
     -> collective_wait (head-side: cross-rank skew of the pre-report
                         timestamps, naming the straggler rank)
@@ -249,8 +250,10 @@ def batch_signature(batch: Dict[str, Any]) -> str:
 
 # compile sub-phases are disjoint (trace -> mlir -> backend compile), so
 # summing their durations is the compiled-time total; only the backend
-# compile marks "a new executable was built" for the recompile detector
-_RECOMPILE_EVENTS = ("backend_compile", "compile_time")
+# compile, or a CUDA graph captured for a new input signature
+# (compile_torch_pipeline), marks "a new executable was built" for the
+# recompile detector
+_RECOMPILE_EVENTS = ("backend_compile", "compile_time", "cuda_graph_capture")
 
 
 class StepTimer:

@@ -6,13 +6,14 @@ Parity: ``python/ray/dag`` — ``.bind()`` builds ``FunctionNode`` /
 (``compiled_dag_node.py:391``).
 
 Compiled actor-method graphs run as pre-planned actor calls with shared-memory
-channels carrying the edges. The JAX package also fuses chains of pure jax
-stages into one jitted program (``compile_jax_pipeline``); the port's
-counterpart is a later slice.
+channels carrying the edges. Chains of pure torch stages fuse into one CUDA
+graph per input signature (``compile_torch_pipeline``, the counterpart of
+the JAX package's jitted ``compile_jax_pipeline``).
 """
 
 from __future__ import annotations
 
+import time
 from typing import Any, Dict, List, Optional
 
 import ray_tpu_torch
@@ -826,3 +827,107 @@ def _children(node) -> List[DAGNode]:
             out.extend(x for x in v.values() if isinstance(x, DAGNode))
     return out
 
+
+class PipelineCaptureError(RuntimeError):
+    """A stage of ``compile_torch_pipeline`` could not be captured in a CUDA
+    graph (a host synchronisation such as ``.item()``, a host copy, a
+    fresh cuBLAS handle). ``stage`` is its index in the chain, or None when
+    the capture failed after the last stage ran."""
+
+    def __init__(self, stage: Optional[int], cause: BaseException):
+        where = f"stage {stage}" if stage is not None else "the end of the capture"
+        super().__init__(
+            f"compile_torch_pipeline: {where} cannot be captured in a CUDA graph "
+            f"({type(cause).__name__}: {cause}); the pipeline does not fall back "
+            "to eager execution on the card"
+        )
+        self.stage = stage
+
+
+def _run_stages(stages, x):
+    for stage in stages:
+        x = stage(x)
+    return x
+
+
+def _capture(stages, x):
+    """(graph, static input, static output, capture seconds) of the chain
+    on ``x``'s signature. The chain runs once eagerly on a side stream
+    first, so that lazy set-up (kernel builds, cuBLAS workspaces, the
+    allocator's first blocks) stays out of the capture; only the capture's
+    time is the compile event."""
+    import torch
+
+    from ray_tpu_torch._private import stepplane
+
+    with torch.inference_mode(False):
+        # a normal tensor: later calls outside inference mode copy into it
+        static_in = x.detach().clone()
+    side = torch.cuda.Stream(x.device)
+    side.wait_stream(torch.cuda.current_stream(x.device))
+    with torch.cuda.stream(side):
+        _run_stages(stages, static_in)
+    torch.cuda.current_stream(x.device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    t0 = time.perf_counter()
+    index: Optional[int] = None
+    try:
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            y = static_in
+            for index, stage in enumerate(stages):
+                y = stage(y)
+            index = None
+    except Exception as e:  # noqa: BLE001 (any failure names its stage)
+        raise PipelineCaptureError(index, e) from e
+    seconds = time.perf_counter() - t0
+    stepplane.note_compile("cuda_graph_capture", seconds)
+    return graph, static_in, y, seconds
+
+
+def compile_torch_pipeline(stages, donate: bool = False):
+    """Fuse a chain of pure torch stage functions into one callable.
+
+    The counterpart of the JAX package's ``compile_jax_pipeline``, which
+    jits the chain into one XLA program. On a CUDA tensor the whole chain is
+    captured as one ``torch.cuda.CUDAGraph`` per input signature (shape,
+    dtype, device: ``jit`` caches per abstract signature); a call copies
+    its input into the graph's static buffer and replays the graph, so the
+    stage boundaries stay on the card and the host launches the chain once.
+    The capture's time goes to the step plane's compile stage
+    (``note_compile("cuda_graph_capture", s)``). A stage that cannot be
+    captured raises ``PipelineCaptureError`` with its index: the chain never
+    falls back to eager execution on the card. Any other input runs the
+    chain eagerly.
+
+    On the card the chain's output is one tensor; the result is a copy of
+    it (the next replay overwrites the graph's output buffer) and carries
+    no autograd: captures and replays run under ``torch.no_grad()``. The
+    stages' Python runs at the warm-up and the capture only, never at a
+    replay, so a kernel wrapper's launch counter does not tick at replays:
+    ``fused.replays`` counts them and ``fused.capture_s`` holds each
+    capture's seconds. ``donate=True``
+    keeps the reference's meaning (the caller gives up ``x``) and changes no
+    result; the graph copies ``x`` into its own buffer either way."""
+    import torch
+
+    stages = list(stages)
+    graphs: Dict[tuple, tuple] = {}
+
+    def fused(x):
+        if not (isinstance(x, torch.Tensor) and x.is_cuda):
+            return _run_stages(stages, x)
+        key = (tuple(x.shape), x.dtype, x.device)
+        with torch.no_grad():
+            entry = graphs.get(key)
+            if entry is None:
+                entry = graphs[key] = _capture(stages, x)
+                fused.capture_s.append(entry[3])
+            graph, static_in, static_out, _ = entry
+            static_in.copy_(x)
+            graph.replay()
+            fused.replays += 1
+            return static_out.clone()
+
+    fused.replays = 0
+    fused.capture_s = []
+    return fused

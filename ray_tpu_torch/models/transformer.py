@@ -22,7 +22,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -449,6 +449,30 @@ def forward(
     ``unembed`` is (``ShardedModel``)."""
     return _forward(params, tokens, cfg, _model(cfg, mesh, rules, context_axis), positions,
                     use_flash)
+
+
+def forward_stages(params: Params, cfg: TransformerConfig, *, use_flash: bool = True) -> List:
+    """``forward`` on one device as a chain of stage functions: the
+    embedding lookup (tokens on the parameters' device -> x), one stage per
+    block (x -> x) and the final norm with the unembedding (x -> logits).
+    Run in order they compute ``forward(params, tokens, cfg)`` op for op;
+    ``ray_tpu_torch.dag.compile_torch_pipeline`` fuses them into one CUDA
+    graph. The rotary tables are made once, here, outside the stages."""
+    model = local_model(cfg)
+    table = params["embed"]
+    cos, sin = rope_frequencies(cfg.head_dim, cfg.max_seq_len, cfg.rope_theta,
+                                device=table.device)
+
+    def block(x, layer):
+        return _block(cfg, x, layer, cos, sin, None, model, use_flash)
+
+    def stage(li):
+        layer = layer_params(params, li)
+        return lambda x: _remat(cfg, block, x, layer)
+
+    return ([lambda tokens: model.embed(table, tokens)]
+            + [stage(li) for li in range(cfg.n_layers)]
+            + [lambda x: unembed(params, x, model, table)])
 
 
 def sharded_loss(params, tokens, targets, cfg, model: ShardedModel, *, positions=None,

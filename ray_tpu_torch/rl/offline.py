@@ -5,11 +5,11 @@ Parity: ``rllib/algorithms/bc/``, ``rllib/algorithms/marwil/`` and
 ``rllib/algorithms/cql/`` — train a policy from a fixed dataset with no
 environment interaction. The dataset is duck-typed, as the reference uses
 it: any object with ``materialize()`` whose result has
-``iter_batches(batch_size=, drop_last=)`` yielding dicts of arrays (a
-``ray_tpu.data.Dataset`` works unchanged; the port imports nothing to take
-one). MARWIL weights the log-likelihood by exp(beta * advantage / std) with
-the population std (``jnp.std``), outside the gradient. CQL's target network
-is a snapshot of the online one, Polyak-tracked in place after every step.
+``iter_batches(batch_size=, drop_last=)`` yielding dicts of arrays, such
+as a ``ray_tpu_torch.data.Dataset``. MARWIL weights the log-likelihood by
+exp(beta * advantage / std) with the population std (``jnp.std``), outside
+the gradient. CQL's target network is a snapshot of the online one,
+Polyak-tracked in place after every step.
 """
 
 from __future__ import annotations

@@ -9,8 +9,10 @@ actor per rank on the port's runtime (``ScalingConfig(use_gpu=True)``: one
 GPU each); with ``use_torch_distributed`` the ranks join one
 ``torch.distributed`` process group (NCCL on GPUs, gloo on the CPU) through
 the runtime's KV before the loop runs. Pytree checkpoints of a train state
-are ``save_pytree`` / ``load_pytree``. Not in the port yet: the data
-library behind ``datasets=`` and ``get_dataset_shard``, and the
+are ``save_pytree`` / ``load_pytree``. ``datasets=`` attaches
+``ray_tpu_torch.data`` datasets, which the loop reads through
+``train.get_dataset_shard`` (each rank a disjoint lazy shard; batches
+reach the card through ``iter_torch_batches``). Not in the port: the
 TensorFlow trainer.
 """
 

@@ -136,7 +136,15 @@ class _TrainWorker:
         run_name: str = "train",
     ):
         fn = cloudpickle.loads(fn_blob)
-        session = _Session(self.context, collector, latest_ckpt, run_name=run_name)
+        datasets = None
+        if isinstance(config, dict) and "__datasets__" in config:
+            # internal plumbing, not a hyperparameter: the user fn gets a
+            # config it can json.dumps/log without tripping over Datasets
+            config = dict(config)
+            datasets = config.pop("__datasets__")
+        session = _Session(
+            self.context, collector, latest_ckpt, run_name=run_name, datasets=datasets
+        )
         _set_session(session)
         try:
             if config is not None:

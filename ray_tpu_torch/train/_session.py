@@ -152,8 +152,12 @@ class _Session:
         collector,
         latest_checkpoint: Optional[Checkpoint],
         run_name: str = "train",
+        datasets: Optional[Dict[str, Any]] = None,
     ):
         self.context = context
+        # trainer-attached datasets (DataParallelTrainer(datasets=...));
+        # consumed via train.get_dataset_shard — the instrumented ingest seam
+        self.datasets: Dict[str, Any] = dict(datasets or {})
         self.collector = collector  # ActorHandle of _ReportCollector (or None)
         self.run_name = run_name
         # step plane: per-step stage decomposition between report boundaries
@@ -394,13 +398,37 @@ def get_checkpoint() -> Optional[Checkpoint]:
 
 
 def get_dataset_shard(name: str = "train"):
-    """Parity: ``ray.train.get_dataset_shard``. The port has no data library
-    yet: the trainer's ``datasets=`` and this per-rank shard come with the
-    data slice (``ray_tpu/data``), so calling it raises."""
-    raise NotImplementedError(
-        f"train.get_dataset_shard({name!r}) needs the data library, which the port "
-        "does not have yet (the data slice); feed the loop from its config instead"
-    )
+    """The :class:`~ray_tpu_torch.data.iterator.DataIterator` over the
+    dataset the trainer attached under ``name``
+    (``DataParallelTrainer(datasets=...)``), or None when the trainer
+    attached none. Parity: ``ray.train.get_dataset_shard``. Iteration
+    through it is the instrumented ingest seam: batch-fetch blocking lands
+    in the step plane's ``data_wait`` stage (with per-operator stall
+    attribution) and ``iter_torch_batches``' host-to-device transfer in
+    ``host_to_device``."""
+    s = _get_session()
+    if s is None:
+        raise RuntimeError(
+            "train.get_dataset_shard() called outside a training session"
+        )
+    ds = s.datasets.get(name)
+    if ds is None:
+        return None
+    from ray_tpu_torch.data.dataset import Dataset
+    from ray_tpu_torch.data.iterator import DataIterator
+
+    world = s.context.world_size
+    if world > 1 and isinstance(ds, Dataset):
+        # per-rank shard: round-robin slice of the SOURCE refs/read tasks
+        # with the operator stages preserved — lazy (no materialize), and
+        # ranks see disjoint data (a rank count above the block count
+        # leaves trailing ranks empty; repartition first for balance)
+        ds = Dataset(
+            ds._block_refs[s.context.world_rank :: world],
+            stages=ds._stages,
+            owned_actors=ds._owned_actors,
+        )
+    return ds if isinstance(ds, DataIterator) else DataIterator(ds)
 
 
 def load_elastic(arrays=None, *, full: bool = False):

@@ -99,16 +99,14 @@ class DataParallelTrainer:
         datasets: Optional[Dict[str, Any]] = None,
         resume_from_checkpoint: Optional[Checkpoint] = None,
     ):
-        if datasets:
-            raise NotImplementedError(
-                "DataParallelTrainer(datasets=...) needs the data library, which the "
-                "port does not have yet (the data slice); feed the loop from its config"
-            )
         self.train_loop = train_loop_per_worker
         self.train_loop_config = train_loop_config
         self.scaling_config = scaling_config or ScalingConfig()
         self.run_config = run_config or RunConfig()
         self.resume_from_checkpoint = resume_from_checkpoint
+        # name -> Dataset or DataIterator, read in the loop through
+        # train.get_dataset_shard(name)
+        self.datasets = datasets or {}
         if self.scaling_config.use_torch_distributed:
             self.train_loop = self._wrap_distributed(
                 train_loop_per_worker, self.scaling_config.use_gpu
@@ -181,6 +179,9 @@ class DataParallelTrainer:
         error: Optional[Exception] = None
         train_fn = self.train_loop
         config = self.train_loop_config
+        if self.datasets:
+            config = dict(config or {})
+            config["__datasets__"] = self.datasets
 
         def resume_fn():
             # every restart resumes from the latest COMMITTED step — never

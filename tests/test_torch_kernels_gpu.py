@@ -1,4 +1,6 @@
-"""The port's CUDA kernels against their plain versions, on a CUDA card.
+"""The port's CUDA kernels against their plain versions, on a CUDA card, and
+the paths that exist only there (the data library's CUDA feed,
+``compile_torch_pipeline``'s CUDA graphs).
 
 Every test here is marked ``gpu`` and skips where there is no card: the
 kernels have no CPU mode. This file imports only torch, so it runs on the
@@ -549,6 +551,127 @@ def test_ring_attention_raises_where_the_kernels_do_not_take_the_tensors(cuda, d
     with pytest.raises(ValueError, match="flash_attention kernel takes"):
         ring_attention(q, k, v, group=None)
     assert (flash_attention.launches, flash_attention_backward.launches) == before
+
+
+# -- the data library's CUDA feed and compile_torch_pipeline's graphs ----------
+
+
+@pytest.fixture(scope="module")
+def port_runtime():
+    """The port's runtime (two CPUs) for the data library's tasks."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the feed copies to it")
+    import ray_tpu_torch
+
+    ray_tpu_torch.init(num_cpus=2, _system_config={"prestart_workers": False})
+    yield
+    ray_tpu_torch.shutdown()
+
+
+def _image_rows(n, seed=0):
+    return np.random.default_rng(seed).integers(0, 256, (n, 64, 64, 3), dtype=np.uint8)
+
+
+@pytest.mark.gpu
+def test_torch_batches_copy_beside_a_busy_consumer_stream(port_runtime, cuda):
+    """``iter_torch_batches`` on the card (its default device): each batch
+    is copied on the iterator's own stream, so a batch pulled while the
+    consumer's stream is busy (a ~200 ms spin queued before the pull) is on
+    the card before the spin ends; the consumer reads the batches in order,
+    equal to the dataset's rows."""
+    from ray_tpu_torch import data
+    from ray_tpu_torch.data import DataIterator
+
+    rows = _image_rows(256)
+    it = DataIterator(data.from_numpy(rows, column="image", num_blocks=4))
+    batches = it.iter_torch_batches(batch_size=64)
+    got, overlapped = [next(batches)["image"]], []
+    for _ in range(3):
+        spun = torch.cuda.Event()
+        torch.cuda._sleep(400_000_000)  # on the consumer's (current) stream
+        spun.record()
+        batch = next(batches)  # its copy is enqueued after the spin
+        it.copy_stats()  # waits for the copy stream's events only
+        overlapped.append(not spun.query())
+        assert batch["image"].device.type == "cuda"
+        got.append(batch["image"])
+    with pytest.raises(StopIteration):
+        next(batches)
+    assert overlapped == [True] * 3
+    assert torch.equal(torch.cat(got).cpu(), torch.from_numpy(rows))
+    stats = it.copy_stats()
+    assert stats["batches"] == 4 and stats["bytes"] == rows.nbytes and stats["copy_ms"] > 0
+
+
+@pytest.mark.gpu
+def test_torch_batches_survive_a_slow_consumer(port_runtime, cuda):
+    """Sixteen distinct batches, each read on the consumer's stream only
+    after a spin and dropped by Python before that read has run: the pinned
+    staging buffers and the batches' device memory must not be handed out
+    again before the copy or the read that uses them has completed
+    (``record_stream``), or a later batch would overwrite an earlier one."""
+    from ray_tpu_torch import data
+
+    rows = _image_rows(16 * 32, seed=1)
+    ds = data.from_numpy(rows, column="image", num_blocks=16)
+    sums = []
+    for batch in ds.iter_torch_batches(batch_size=32, dtypes={"image": torch.int64}):
+        torch.cuda._sleep(50_000_000)
+        sums.append(batch["image"].sum(dim=(1, 2, 3)))
+    want = rows.reshape(16 * 32, -1).astype(np.int64).sum(1)
+    np.testing.assert_array_equal(torch.cat(sums).cpu().numpy(), want)
+
+
+def _bf16_lm():
+    from ray_tpu_torch.models.transformer import TransformerConfig
+
+    return TransformerConfig(vocab_size=512, d_model=256, n_layers=2, n_heads=4, d_ff=512,
+                             max_seq_len=256, dtype=torch.bfloat16)
+
+
+@pytest.mark.gpu
+def test_compiled_pipeline_replays_the_forward_on_card(cuda):
+    """``compile_torch_pipeline(forward_stages(...))`` on a 2-layer bf16
+    model at head_dim 64: one graph per signature, captured with one flash
+    launch per layer; replays tick no counter and equal eager ``forward``
+    bit for bit, for a second input of the same shape too."""
+    from ray_tpu_torch.dag import compile_torch_pipeline
+    from ray_tpu_torch.models.transformer import forward, forward_stages, init_params
+
+    cfg = _bf16_lm()
+    params = init_params(torch.Generator(device=cuda).manual_seed(0), cfg, device=cuda)
+    fused = compile_torch_pipeline(forward_stages(params, cfg))
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    with torch.inference_mode():
+        for s in (128, 64):
+            toks = [torch.randint(0, cfg.vocab_size, (2, s), generator=gen, device=cuda)
+                    for _ in range(2)]
+            before = flash_attention.launches
+            first = fused(toks[0])
+            # one eager warm-up pass and the capture
+            assert flash_attention.launches - before == 2 * cfg.n_layers
+            before = flash_attention.launches
+            again = [fused(t) for t in toks]
+            assert flash_attention.launches == before
+            for got, t in zip([first] + again, toks[:1] + toks):
+                assert torch.equal(got, forward(params, t, cfg))
+    assert len(fused.capture_s) == 2 and fused.replays == 6
+
+
+@pytest.mark.gpu
+def test_compiled_pipeline_names_the_stage_it_cannot_capture(cuda):
+    """A stage that synchronises with the host (``.item()``) cannot be
+    captured: the pipeline raises with its index and does not run eagerly;
+    the card stays usable."""
+    from ray_tpu_torch.dag import PipelineCaptureError, compile_torch_pipeline
+
+    x = torch.arange(8.0, device=cuda)
+    fused = compile_torch_pipeline([lambda t: t * 2, lambda t: t + t.sum().item(), torch.sum])
+    with pytest.raises(PipelineCaptureError) as err:
+        fused(x)
+    assert err.value.stage == 1 and fused.replays == 0
+    ok = compile_torch_pipeline([lambda t: t * 2, torch.sum])
+    assert ok(x).item() == 56.0 and ok.replays == 1
 
 
 # -- the mesh path across four cards (NCCL), where a machine has them --------

@@ -391,9 +391,11 @@ def test_topology_and_gpu_without_a_card_raise():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA device"):
             ScalingConfig(num_workers=1, use_gpu=True)
-    with pytest.raises(NotImplementedError, match="data library"):
-        DataParallelTrainer(lambda: None, datasets={"train": object()})
-    with pytest.raises(NotImplementedError, match="data library"):
+    # datasets= is taken (the data library feeds it); the shard is read
+    # inside a training session only
+    ds = {"train": object()}
+    assert DataParallelTrainer(lambda: None, datasets=ds).datasets is ds
+    with pytest.raises(RuntimeError, match="outside a training session"):
         train.get_dataset_shard()
 
 
